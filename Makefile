@@ -3,7 +3,7 @@
 
 PY ?= python
 
-.PHONY: all test test-fast bench bench-quick native dryrun clean
+.PHONY: all test test-fast test-gpu bench bench-quick native dryrun clean
 
 all: native test
 
@@ -17,10 +17,9 @@ test:
 test-fast:
 	$(PY) -m pytest tests/ -q -x -k "not reference_binary"
 
-# Kernel tests through the TPU interpreter (TPU-shaped semantics without
-# hardware; catches what plain interpret=True hides).
-test-tpu-interpret:
-	CGX_TPU_INTERPRET=1 $(PY) -m pytest tests/test_kernels.py tests/test_ir.py tests/test_semiresident.py tests/test_wbell.py -q
+# On a machine with an NVIDIA GPU: the smoke run as a test.
+test-gpu:
+	$(PY) -m pytest tests/test_chip_smoke.py -q -m gpu
 
 bench:
 	$(PY) bench.py

@@ -1,6 +1,6 @@
-"""cgx — a TPU-native sparse iterative-solver framework.
+"""cgx — a sparse iterative-solver framework in JAX.
 
-From-scratch JAX/XLA/Pallas re-design with the capabilities of the reference
+From-scratch JAX/XLA re-design with the capabilities of the reference
 C conjugate-gradient solver (rnelias/Conjugate-Gradient; structural analysis
 in SURVEY.md): CSR/COO/BSR/ELL/DIA sparse storage, O(nnz) SpMV/SpMM, fused
 vector ops, (preconditioned) CG under ``lax.while_loop``, and row-partitioned
@@ -18,36 +18,27 @@ from cgx.solve.precond import (BlockJacobiPrecond, JacobiPrecond,
                                PolynomialPrecond)
 from cgx.solve.ic0 import IC0Precond, IC0SweepPrecond
 from cgx.solve.block import block_cg_solve, cg_solve_multi
-from cgx.solve.padded import cg_solve_padded
-from cgx.solve.auto import auto_solve, select_backend
+from cgx.solve.auto import auto_solve
 from cgx.solve.chebyshev import (analytic_bounds, chebyshev_solve,
                                  estimate_bounds)
-from cgx.solve.ir import ir_cg_solve, ir_supported
-from cgx.solve.hp import (IRDF64Operator, df64_cg_solve, ir_df64_solve,
+from cgx.solve.hp import (df64_cg_solve, ir_df64_solve,
                           make_ir_df64_solver, make_ir_df64_solver_multi)
-from cgx.solve.wbell import (WBellBlockJacobiPrecond, wbell_cg_solve,
-                             wbell_cg_solve_multi)
-from cgx.sparse.wbell import (WBELL_MIN_ROWS, WBELLMatrix, auto_format,
-                              pick_format, wbell_from_csr)
+from cgx.sparse.types import auto_format, pick_format
 from cgx.utils.checkpoint import cg_solve_checkpointed
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BSRMatrix", "COOMatrix", "CSRMatrix", "DIAMatrix", "ELLMatrix",
-    "WBELLMatrix",
     "bsr_from_csr", "coo_from_scipy", "csr_from_scipy", "dia_from_csr",
-    "ell_from_csr", "wbell_from_csr", "auto_format", "pick_format",
-    "WBELL_MIN_ROWS",
+    "ell_from_csr", "auto_format", "pick_format",
     "spmv", "spmm", "blas", "CGResult", "cg_solve",
     "cg_solve_single_reduction", "cg_solve_pipelined", "cg_solve_multi",
-    "block_cg_solve", "wbell_cg_solve", "wbell_cg_solve_multi",
-    "WBellBlockJacobiPrecond",
-    "cg_solve_padded",
-    "auto_solve", "select_backend", "cg_solve_checkpointed",
+    "block_cg_solve",
+    "auto_solve", "cg_solve_checkpointed",
     "analytic_bounds", "chebyshev_solve", "estimate_bounds",
-    "ir_cg_solve", "ir_supported", "df64_cg_solve", "ir_df64_solve",
-    "make_ir_df64_solver", "make_ir_df64_solver_multi", "IRDF64Operator",
+    "df64_cg_solve", "ir_df64_solve",
+    "make_ir_df64_solver", "make_ir_df64_solver_multi",
     "JacobiPrecond", "BlockJacobiPrecond", "PolynomialPrecond",
     "IC0Precond", "IC0SweepPrecond",
 ]

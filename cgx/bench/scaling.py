@@ -3,15 +3,15 @@
 Two complementary tools:
 
 * :func:`comm_report` — an *analytic* per-iteration communication/compute
-  model from the actual partition: bytes moved over ICI/DCN per CG
+  model from the actual partition: bytes moved between devices per CG
   iteration (halo slices + psum scalars), bytes streamed from HBM, and the
   predicted scaling efficiency on a given link model.  Exact — it reads the
   halo widths and shard sizes straight off the :class:`Partition` — and
   hardware-independent, so it runs in CI.
 * :func:`measure_scaling` — measured wall-clock of the same sharded solve
   on 1, 2, ..., N devices of whatever mesh is available.  On the virtual
-  CPU mesh this validates the machinery (numbers are not TPU-predictive);
-  on a real slice it is the BASELINE.md scaling row.
+  CPU mesh this validates the machinery only (CPU numbers say nothing
+  about a device); on real devices it gives the scaling row.
 """
 from __future__ import annotations
 
@@ -26,11 +26,15 @@ __all__ = ["LinkModel", "comm_report", "measure_scaling"]
 
 @dataclass(frozen=True)
 class LinkModel:
-    """Bandwidths/latencies for the efficiency prediction."""
+    """Bandwidths/latencies for the efficiency prediction.
 
-    hbm_gbps: float = 819.0        # v5e HBM
-    ici_gbps: float = 186.0        # v5e per-link ICI (bidirectional /2)
-    ici_latency_us: float = 1.0    # per hop
+    Defaults: NVIDIA's H100 SXM data sheet (3.35 TB/s HBM, 900 GB/s NVLink
+    per card = 450 GB/s each way); the latencies are round placeholders,
+    not measurements."""
+
+    hbm_gbps: float = 3350.0       # H100 SXM HBM3
+    link_gbps: float = 450.0        # H100 NVLink, one direction
+    link_latency_us: float = 1.0    # per hop
     psum_latency_us: float = 4.0   # small-allreduce latency per sync point
 
 
@@ -60,8 +64,8 @@ def comm_report(part, dtype_bytes: int = 4,
         hops = max(s - 1, 1)
 
     t_compute = hbm_bytes / (link.hbm_gbps * 1e9)
-    t_comm = (comm_bytes / (link.ici_gbps * 1e9)
-              + hops * link.ici_latency_us * 1e-6)
+    t_comm = (comm_bytes / (link.link_gbps * 1e9)
+              + hops * link.link_latency_us * 1e-6)
     t_sync = sync_points * link.psum_latency_us * 1e-6
     # Halo exchange overlaps with interior compute (cgx.dist.halo); count
     # only its non-overlappable excess.

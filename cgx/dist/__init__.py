@@ -2,9 +2,9 @@
 
 The reference is entirely sequential (no MPI in code; the ``mpiexec`` Makefile
 targets at ``Makefile:20-30`` launch N independent copies — SURVEY.md §2.2).
-This package is the TPU-native distribution story the assignment series was
-heading toward: a 1-D device mesh over matrix rows, ``shard_map`` SPMD with
-XLA collectives over ICI — ``ppermute`` ring halo exchange for the off-block
+This package is the distribution story the assignment series was heading
+toward: a 1-D device mesh over matrix rows, ``shard_map`` SPMD with XLA
+collectives between devices — ``ppermute`` ring halo exchange for the off-block
 columns of A, ``psum`` for the two global dot products per CG iteration, and
 an ``all_gather`` fallback for general (unbanded) sparsity.
 """
@@ -14,11 +14,8 @@ from cgx.dist.halo import halo_exchange, local_matvec
 from cgx.dist.solve import (AXIS, dist_cg_solve, make_row_mesh,
                             operator_specs)
 from cgx.dist.schwarz import IC0SweepBlocks, ic0_sweep_blocks
-from cgx.dist.wbell import (WBellPartition, dist_wbell_cg_solve,
-                            partition_wbell)
 
 __all__ = [
-    "WBellPartition", "partition_wbell", "dist_wbell_cg_solve",
     "Partition", "partition_csr", "partition_dia", "pad_vector",
     "unpad_vector", "halo_exchange", "local_matvec", "AXIS",
     "dist_cg_solve", "make_row_mesh", "operator_specs",

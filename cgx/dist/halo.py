@@ -1,6 +1,6 @@
 """Ring halo exchange and the shard-local matvec (runs inside ``shard_map``).
 
-The TPU-native replacement for what MPI point-to-point would have been in the
+The replacement for what MPI point-to-point would have been in the
 reference's assignment series (no comm code exists in the tree — SURVEY.md
 §2.2/2.3): neighbor boundary slices of the iterate move over ICI via
 ``jax.lax.ppermute`` ring steps; general sparsity falls back to

@@ -1,11 +1,12 @@
 """Multi-host launch: process-group init + mesh construction.
 
-TPU-native replacement for the reference's vestigial ``mpiexec`` targets
+Replacement for the reference's vestigial ``mpiexec`` targets
 (``Makefile:20-30`` — which launched N *independent* copies of a sequential
-binary; SURVEY.md §2.2).  On a real pod slice every host runs the same
-program; :func:`initialize` wires them into one JAX process group over
-ICI/DCN, and :func:`global_row_mesh` builds the 1-D solver mesh over every
-chip in the slice.
+binary; SURVEY.md §2.2).  On a multi-host cluster every host runs the same
+program; :func:`initialize` wires them into one JAX process group, and
+:func:`global_row_mesh` builds the 1-D solver mesh over every device of
+every host.  One host drives all of its own devices from one process and
+needs none of this.
 
 Elastic recovery (SURVEY.md §5.c): on preemption, relaunch the same command
 — `initialize()` re-forms the group and the solver resumes from the last
@@ -25,9 +26,8 @@ def initialize(coordinator_address: Optional[str] = None,
     """``jax.distributed.initialize`` with env-var defaults.
 
     No-ops when single-process (the common dev case), so library code can
-    call it unconditionally.  On Cloud TPU the arguments auto-detect; for
-    manual launches set ``CGX_COORDINATOR``/``CGX_NUM_PROCS``/
-    ``CGX_PROC_ID`` or pass explicitly.
+    call it unconditionally.  Set ``CGX_COORDINATOR``/``CGX_NUM_PROCS``/
+    ``CGX_PROC_ID`` or pass them explicitly.
     """
     import jax
 
@@ -52,12 +52,11 @@ def is_multihost() -> bool:
 
 
 def global_row_mesh():
-    """1-D ``"rows"`` mesh over every device in the (multi-host) slice.
+    """1-D ``"rows"`` mesh over every device of every host.
 
     Device order follows ``jax.devices()`` — contiguous per host, so a
     contiguous row partition keeps each host's shards local and the ring
-    halo exchange rides ICI within hosts with one DCN hop per host
-    boundary.
+    halo exchange crosses the network once per host boundary.
     """
     from cgx.dist.solve import make_row_mesh
 

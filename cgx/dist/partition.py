@@ -6,7 +6,7 @@ mesh with ``P("rows", None, ...)`` and each device receives exactly its local
 operator.  Two local-operator layouts:
 
 * **Padded ELL** (from CSR): every local row stores a fixed ``width`` of
-  (value, column) slots — the static shapes the TPU vector unit wants.  In
+  (value, column) slots — static shapes, no segment ids.  In
   ``"halo"`` mode columns are rewritten into *extended local* coordinates
   (index into ``[left_halo | local | right_halo]``); in ``"allgather"`` mode
   they stay global.

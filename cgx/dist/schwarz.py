@@ -1,7 +1,7 @@
-"""Shard-local IC(0) preconditioning: one-level additive Schwarz on TPU.
+"""Shard-local IC(0) preconditioning: one-level additive Schwarz.
 
 The reference has no preconditioning and no distribution (SURVEY.md §2.2);
-the north star asks for both.  The TPU-shaped distributed IC(0) combines
+the north star asks for both.  The distributed IC(0) combines
 two design decisions:
 
 * **Block (Schwarz) truncation.**  Each shard factors only its own
@@ -13,9 +13,7 @@ two design decisions:
 * **Gather-free sweep apply.**  The triangular solves use the Neumann
   (Jacobi–Richardson) sweep form of :class:`cgx.solve.ic0.IC0SweepPrecond`
   with the strict triangles held as banded DIA — every sweep is a few
-  statically-shifted FMAs, no gathers, no level schedule (see
-  docs/PERF_NOTES.md round 2g for why exact level-scheduled IC(0) loses
-  ~460x on TPU).
+  statically-shifted FMAs, no gathers, no level schedule.
 
 Setup runs host-side once per partition: each local block is rebuilt from
 the :class:`~cgx.dist.partition.Partition`'s own stacked arrays (no access

@@ -3,7 +3,7 @@
 Per iteration, the only cross-chip traffic is (a) the halo exchange (or
 all-gather) inside the local matvec and (b) the two ``psum`` scalar
 reductions for α and β — the same two global sync points the math requires
-(SURVEY.md §3.2 TPU mapping).  The iterate, residual and direction vectors
+(SURVEY.md §3.2).  The iterate, residual and direction vectors
 live sharded for the whole solve; nothing is ever replicated.
 """
 from __future__ import annotations
@@ -112,6 +112,7 @@ def _make_local_precond(a_loc: Partition, kind: str, mv, *, blocksize: int,
 
         def apply_bj(r):
             zb = jnp.einsum("bij,bj->bi", inv_blocks, r.reshape(-1, bs),
+                            precision=jax.lax.Precision.HIGHEST,
                             preferred_element_type=r.dtype)
             return zb.reshape(-1)
 

@@ -9,70 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["save_matrix", "load_matrix", "save_df64_operator",
-           "load_df64_operator", "peek_kind"]
-
-
-def peek_kind(path: str) -> str:
-    """The format tag of a saved ``.npz`` without loading its arrays."""
-    with np.load(path) as z:
-        return str(z["kind"])
-
-
-def save_df64_operator(path: str, op, b=None) -> None:
-    """Persist an :class:`cgx.solve.hp.IRDF64Operator` bundle — the df64
-    ELL split (exact hi/lo of the fp64 operator), the fp32 WBELL engine
-    operator, and the fp64 diagonal — so repeated ``--accuracy df64``
-    invocations skip the ~25 s/1 M-row host builds entirely (VERDICT r4
-    weak #3)."""
-    arrays = dict(kind="ir_df64",
-                  hp_vhi=np.asarray(op.a_hp.vhi),
-                  hp_vlo=np.asarray(op.a_hp.vlo),
-                  hp_cols=np.asarray(op.a_hp.col_indices),
-                  shape=np.asarray(op.a_hp.shape),
-                  diag=np.asarray(op.diag, np.float64))
-    if op.wb is not None:
-        arrays["wb_statics"] = np.asarray(
-            [op.wb.ng_real, op.wb.nt, op.wb.ngw, op.wb.wbcap, op.wb.span,
-             op.wb.nnz])
-        for f in ("values", "lc", "outg", "ps", "wb", "zi", "g0", "gn",
-                  "perm", "iperm", "diag_internal", "pgo", "p_og",
-                  "p_ga"):
-            arrays["wb_" + f] = np.asarray(getattr(op.wb, f))
-    if b is not None:
-        arrays["rhs"] = np.asarray(b)
-    np.savez_compressed(path, **arrays)
-
-
-def load_df64_operator(path: str):
-    """Load ``(IRDF64Operator, rhs_or_None)`` saved by
-    :func:`save_df64_operator`."""
-    import jax.numpy as jnp
-
-    from cgx.solve.hp import DF64ELL, IRDF64Operator
-
-    with np.load(path) as z:
-        if str(z["kind"]) != "ir_df64":
-            raise ValueError(f"{path}: not an ir_df64 operator bundle")
-        b = np.asarray(z["rhs"]) if "rhs" in z else None
-        a_hp = DF64ELL(vhi=jnp.asarray(z["hp_vhi"]),
-                       vlo=jnp.asarray(z["hp_vlo"]),
-                       col_indices=jnp.asarray(z["hp_cols"]),
-                       shape=tuple(int(v) for v in z["shape"]))
-        wb = None
-        if "wb_statics" in z:
-            from cgx.sparse.wbell import WBELLMatrix
-            st = z["wb_statics"]
-            wb = WBELLMatrix(
-                **{f: jnp.asarray(z["wb_" + f])
-                   for f in ("values", "lc", "outg", "ps", "wb", "zi",
-                             "g0", "gn", "perm", "iperm",
-                             "diag_internal", "pgo", "p_og", "p_ga")},
-                shape=tuple(int(v) for v in z["shape"]),
-                ng_real=int(st[0]), nt=int(st[1]), ngw=int(st[2]),
-                wbcap=int(st[3]), span=int(st[4]), nnz=int(st[5]))
-        return IRDF64Operator(a_hp=a_hp, wb=wb,
-                              diag=np.asarray(z["diag"], np.float64)), b
+__all__ = ["save_matrix", "load_matrix"]
 
 
 def save_matrix(path: str, a, b=None) -> None:
@@ -111,17 +48,6 @@ def save_matrix(path: str, a, b=None) -> None:
     elif isinstance(a, stencil.Stencil2D):
         arrays = dict(kind="stencil2d", dims=np.asarray([a.nx, a.ny]),
                       coeffs=np.asarray([a.c_center, a.c_x, a.c_y]))
-    elif type(a).__name__ == "WBELLMatrix":
-        # Persist the BUILT engine operator: the host-side build (RCM +
-        # balance sort + supervariable packing, 10-35 s at 1 M rows)
-        # amortizes across processes, not just within one (round 4).
-        arrays = dict(kind="wbell", shape=np.asarray(a.shape),
-                      statics=np.asarray([a.ng_real, a.nt, a.ngw,
-                                          a.wbcap, a.span, a.nnz]))
-        for f in ("values", "lc", "outg", "ps", "wb", "zi", "g0", "gn",
-                  "perm", "iperm", "diag_internal", "pgo", "p_og",
-                  "p_ga"):
-            arrays[f] = np.asarray(getattr(a, f))
     else:
         raise TypeError(f"save_matrix: unsupported type {type(a)!r}")
     if b is not None:
@@ -181,17 +107,6 @@ def load_matrix(path: str):
             c = z["coeffs"]
             a = stencil.Stencil2D(int(d[0]), int(d[1]), float(c[0]),
                                   float(c[1]), float(c[2]))
-        elif kind == "wbell":
-            from cgx.sparse.wbell import WBELLMatrix
-            st = z["statics"]
-            a = WBELLMatrix(
-                **{f: jnp.asarray(z[f])
-                   for f in ("values", "lc", "outg", "ps", "wb", "zi",
-                             "g0", "gn", "perm", "iperm",
-                             "diag_internal", "pgo", "p_og", "p_ga")},
-                shape=tuple(int(v) for v in z["shape"]),
-                ng_real=int(st[0]), nt=int(st[1]), ngw=int(st[2]),
-                wbcap=int(st[3]), span=int(st[4]), nnz=int(st[5]))
         else:
             raise ValueError(f"unknown format kind {kind!r}")
     return a, b

@@ -157,16 +157,11 @@ def poisson3d_dia27(nx: int, ny: int, nz: int, *, variable: bool = False,
     """Wrap-free SPD 27-point banded operator in DIA form.
 
     The 27-point box stencil (all |dx|,|dy|,|dk| ≤ 1 neighbours) is the
-    widest-band operator the fused DIA engine decomposes natively
-    (``fused_dia_cg.dia_engine_spec``); this builder is the
-    variable-coefficient testbed used for the bf16-coefficient-plane
-    measurements (docs/PERF_NOTES.md round 2h).  ``variable=True`` draws
-    per-entry couplings from U[0.2, 1); either way the diagonal is made
-    strictly dominant (SPD) and every grid-boundary-crossing slot is
-    zero, so ``wrap_entries_zero`` holds and ``auto_solve`` routes the
-    fused engine.  Symmetry is entrywise (``data[-off][i+off] ==
-    data[off][i]``), so the symmetric 3-plane-per-axis streaming path
-    engages.
+    widest band :func:`cgx.sparse.grid.dia_grid_taps` decomposes; this
+    builder is the variable-coefficient DIA testbed.  ``variable=True``
+    draws per-entry couplings from U[0.2, 1); either way the diagonal is
+    made strictly dominant (SPD) and every grid-boundary-crossing slot is
+    zero.  Symmetry is entrywise (``data[-off][i+off] == data[off][i]``).
 
     The reference has no generators at all (it hard-codes one course
     dataset, ``cg.c:235,260-265``); this extends §6's Poisson family to

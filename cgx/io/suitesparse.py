@@ -1,6 +1,6 @@
 """SuiteSparse SPD test matrices: real-file loader + documented stand-ins.
 
-BASELINE.md's target table (SURVEY.md §6) calls for PCG numbers on
+The target table (SURVEY.md §6) calls for PCG numbers on
 SuiteSparse SPD matrices (bcsstk*, thermal2).  This environment has no
 network egress, so the real artifacts cannot be fetched; this module
 provides

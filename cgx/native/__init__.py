@@ -1,6 +1,6 @@
 """Native (C++) host-runtime components, loaded via ctypes.
 
-The TPU compute path is JAX/XLA/Pallas; the host runtime around it — format
+The device compute path is JAX/XLA; the host runtime around it — format
 parsing and factorization setup, the parts the reference wrote in C — is
 C++ here (``cgx/native/src/``), compiled on demand with ``g++ -O3`` into a
 shared library cached next to the sources.  Every native entry point has a

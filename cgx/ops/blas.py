@@ -1,9 +1,9 @@
 """Dense vector ops: dots, norms, axpy.
 
-TPU-native replacement for the reference's sequential vector kernels
+Replacement for the reference's sequential vector kernels
 ``dot_product`` (``mv_ops.c:117-132``), ``sv_mult`` (``mv_ops.c:134-158``),
 ``vec_add`` (``mv_ops.c:203-230``) and ``vec_sub`` (``mv_ops.c:232-259``).
-On TPU these are not standalone kernels: ``axpy`` is written so XLA fuses it
+These are not standalone kernels: ``axpy`` is written so XLA fuses it
 into the surrounding CG loop body, and dots lower to a single on-device
 reduction.  The reference's ``-1.0`` error sentinel on shape mismatch
 (``mv_ops.c:122-126``) becomes a trace-time shape check — impossible states

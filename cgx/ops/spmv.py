@@ -1,18 +1,14 @@
 """Sparse matrix–vector / matrix–matrix products (XLA paths).
 
-TPU-native replacement for the reference's ``mv_mult`` (``mv_ops.c:160-201``),
+Replacement for the reference's ``mv_mult`` (``mv_ops.c:160-201``),
 which densifies each CSR row (``mat_get_row``, ``mv_ops.c:99-113``) and takes
 a full dense dot — O(n²) work per SpMV.  Every path here is O(nnz), traced
-once under ``jit``, and built from primitives XLA fuses well on TPU:
+once under ``jit``, and built from primitives XLA fuses:
 
 * COO/CSR — gather ``x[col]`` + multiply + ``segment_sum`` (sorted segments).
 * ELL     — static-width gather → multiply → row-sum (no segment ids at all).
-* BSR     — batched dense-block contraction on the MXU + block segment-sum.
+* BSR     — batched dense-block contraction + block segment-sum.
 * DIA     — statically-shifted fused multiply-adds (stencil speed-of-light).
-
-Hand-written Pallas kernels for the hot formats live in :mod:`cgx.kernels`;
-these XLA implementations are the always-available reference semantics that
-the kernels are tested against.
 """
 from __future__ import annotations
 
@@ -98,8 +94,11 @@ def _bsr_spmv(a: BSRMatrix, x: jnp.ndarray) -> jnp.ndarray:
     nbr = a.shape[0] // bs
     xb = x.reshape(-1, bs)                       # (n_block_cols, bs)
     gathered = xb[a.col_indices]                 # (nnzb, bs)
-    # Dense (bs, bs) @ (bs,) per block — batched onto the MXU.
+    # Dense (bs, bs) @ (bs,) per block.  HIGHEST: a float32 contraction
+    # may otherwise run in TF32 on a GPU, which costs digits and buys
+    # nothing on a product this small and memory-bound.
     prods = jnp.einsum("bij,bj->bi", a.values, gathered,
+                       precision=jax.lax.Precision.HIGHEST,
                        preferred_element_type=a.dtype)
     yb = jax.ops.segment_sum(prods, a.row_indices, num_segments=nbr,
                              indices_are_sorted=True)
@@ -114,6 +113,7 @@ def _bsr_spmm(a: BSRMatrix, x: jnp.ndarray) -> jnp.ndarray:
     xb = x.reshape(-1, bs, k)                    # (n_block_cols, bs, k)
     gathered = xb[a.col_indices]                 # (nnzb, bs, k)
     prods = jnp.einsum("bij,bjk->bik", a.values, gathered,
+                       precision=jax.lax.Precision.HIGHEST,
                        preferred_element_type=a.dtype)
     yb = jax.ops.segment_sum(prods, a.row_indices, num_segments=nbr,
                              indices_are_sorted=True)
@@ -152,28 +152,6 @@ def _dia_spmm(a: DIAMatrix, x: jnp.ndarray) -> jnp.ndarray:
     return y
 
 
-# -- WBELL (windowed block-ELL — unstructured sparsity, Pallas) -------------
-
-def _register_wbell():
-    from cgx.sparse.wbell import WBELLMatrix
-
-    @spmv.register(WBELLMatrix)
-    def _wbell_spmv(a, x: jnp.ndarray) -> jnp.ndarray:
-        from cgx.kernels.wbell import wbell_spmv
-        return wbell_spmv(a, x)
-
-    @spmm.register(WBELLMatrix)
-    def _wbell_spmm(a, x: jnp.ndarray) -> jnp.ndarray:
-        # Batched internal-layout columns through ONE kernel call — the
-        # slot-plane stream (the dominant traffic) is shared across all
-        # columns (cgx/kernels/wbell.py).  x: (nrhs, nt, 8, 128).
-        from cgx.kernels.wbell import wbell_spmm
-        return wbell_spmm(a, x)
-
-
-_register_wbell()
-
-
 # -- Matrix-free stencils ---------------------------------------------------
 
 @spmv.register(Stencil2D)
@@ -183,11 +161,6 @@ def _stencil2d_spmv(a, x: jnp.ndarray) -> jnp.ndarray:
 
 @spmv.register(Stencil3D)
 def _stencil3d_spmv(a, x: jnp.ndarray) -> jnp.ndarray:
-    if a.backend == "pallas":
-        from cgx.kernels.stencil import stencil3d_spmv_pallas
-        return stencil3d_spmv_pallas(
-            x, nx=a.nx, ny=a.ny, nz=a.nz,
-            coeffs=(a.c_center, a.c_x, a.c_y, a.c_z))
     return a.matvec(x)
 
 

@@ -1,114 +1,19 @@
-"""Solver auto-selection: route each problem to its measured-fastest path.
+"""One solve entry for every operator and right-hand-side shape.
 
-The measured decision surface (docs/PERF_NOTES.md, single v5e chip):
-
-* Fused-capable operators (constant-coefficient stencils, wrap-free
-  7-point DIA) with ≥ ~2 M rows on TPU: XLA's loop-body fusion has
-  collapsed (vector > VMEM) → the fused two-pass Pallas engine wins ~5-7x
-  (`cgx.kernels.fused_engine`); plain CG or Jacobi only.
-* Everything else: the XLA while_loop (`cg_solve`), in tile-padded space
-  when the dimension is off-tile (`cg_solve_padded`).
+:func:`auto_solve` takes any cgx operator (stored format, matrix-free
+stencil or matvec callable) and either one right-hand side or an ``(n, k)``
+block, and runs the XLA ``while_loop`` solvers: :func:`cgx.solve.cg.cg_solve`
+for a vector, :func:`cgx.solve.block.cg_solve_multi` for a block.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-import jax
 import jax.numpy as jnp
 
 from cgx.solve.cg import CGResult
-from cgx.solve.padded import cg_solve_padded, padded_length
 
-__all__ = ["auto_solve", "select_backend", "FUSED_MIN_ROWS"]
-
-# XLA's CG-body mega-fusion holds while the working set stays
-# VMEM-resident (measured 40.6 us/iter at tile-exact 2.1 M rows vs
-# 600 us/iter at 4.1 M rows, fp32).  At 128^3 the v3 engine measures
-# ~48 us vs XLA's 40.6 (cross-process variance ±25% in the resident
-# regime), so routing flips to fused above ~3 M rows where the win is
-# unambiguous (80 vs 600 at 160^3; 345 vs 1086 at 216^3).
-FUSED_MIN_ROWS = 3_000_000
-
-# The whole-solve resident kernel (one pallas_call, x/r/p pinned in VMEM
-# for the entire solve — cgx/kernels/fused_resident.py) beats the XLA
-# loop ~1.9x where it fits (23.0 vs 42.8 us/iter at 128^3, measured) and
-# has none of the resident-regime placement variance.  Below ~64^3 the
-# ~30 ms dispatch dominates any per-iter difference; keep XLA there for
-# its cheaper compile.
-RESIDENT_MIN_ROWS = 200_000
-
-
-def _sr_tier(a):
-    """The semi-resident residency tier for a fused-capable stencil, or
-    None (no tier fits / not a supported stencil)."""
-    from cgx.kernels.fused_cg import stencil_taps
-    from cgx.kernels.fused_semiresident import sr_mode
-    spec = stencil_taps(a)
-    if spec is None:
-        return None
-    nx, ny, nz, taps, _ = spec
-    return sr_mode(nx, ny, nz, taps)
-
-
-def select_backend(a, b, preconditioner=None) -> str:
-    """The backend :func:`auto_solve` would route this problem to:
-    ``"resident_stencil"`` | ``"resident_dia"`` | ``"sr_stencil"`` |
-    ``"sr_dia"`` | ``"fused_stencil"`` | ``"fused_dia"`` | ``"wbell"`` |
-    ``"padded"`` | ``"xla"``.
-
-    Call OUTSIDE jit with concrete data (the DIA wrap-entry check is
-    data-dependent); pass the result to ``auto_solve(backend=...)`` when
-    jitting the solve.
-    """
-    from cgx.kernels import fused_cg
-    from cgx.kernels.fused_dia_cg import (supports_dia,
-                                          wrap_entries_zero_or_none)
-    from cgx.kernels.fused_resident import resident_supported
-    from cgx.solve.precond import JacobiPrecond
-    from cgx.sparse.wbell import WBELLMatrix
-
-    if isinstance(a, WBELLMatrix):
-        # The caller already paid the host-side WBELL build (RCM +
-        # supervariable blocking — seconds at 1 M rows, amortized over
-        # repeated solves): the whole solve runs in the internal layout
-        # through the resident-x Pallas SpMV (measured ~150x over the XLA
-        # gather path on the thermal2-class stand-in).
-        return "wbell"
-    n = b.shape[0]
-    on_tpu = jax.default_backend() == "tpu"
-    jac = isinstance(preconditioner, JacobiPrecond)
-    stencil_ok = (on_tpu and preconditioner is None
-                  and fused_cg.supports(a))
-    # The fused DIA routes additionally require zero entries at every
-    # x-plane-crossing slot (the lane layout drops those — see
-    # fused_dia_cg.wrap_entries_zero).  The check is data-dependent, so
-    # for traced data we conservatively fall back to the XLA path; callers
-    # who know their operator is wrap-free can pass backend="fused_dia".
-    dia_ok = (on_tpu and (preconditioner is None or jac)
-              and supports_dia(a)
-              and wrap_entries_zero_or_none(a) is True)
-    if (stencil_ok or dia_ok) and n >= RESIDENT_MIN_ROWS \
-            and resident_supported(a, b.dtype):
-        return "resident_stencil" if stencil_ok else "resident_dia"
-    if stencil_ok and n >= FUSED_MIN_ROWS and _sr_tier(a) is not None:
-        # Past full residency but a semi-resident tier still fits: the
-        # residency-ladder kernel beats the two-pass engine wherever it
-        # applies (measured 287 vs 340 us/iter at 216^3 rp, 84-97 vs
-        # 93-106 at 160^3 rpq — docs/PERF_NOTES.md round 2j).
-        return "sr_stencil"
-    if stencil_ok and n >= FUSED_MIN_ROWS:
-        return "fused_stencil"
-    if dia_ok and n >= FUSED_MIN_ROWS:
-        from cgx.kernels.fused_semiresident import sr_dia_supported
-        if sr_dia_supported(a, b.dtype):
-            # rpq tier with streamed plane windows: r/p/q stay VMEM
-            # resident, so kernel B's vector re-streams and the q
-            # round-trip disappear (measured 1.14-1.37x vs fused_dia).
-            return "sr_dia"
-        return "fused_dia"
-    if padded_length(n) != n:
-        return "padded"
-    return "xla"
+__all__ = ["auto_solve"]
 
 
 def auto_solve(
@@ -121,191 +26,17 @@ def auto_solve(
     maxiter: Optional[int] = None,
     preconditioner=None,
     track_history: bool = False,
-    backend: Optional[str] = None,
-    mixed_precision: bool = False,
 ) -> CGResult:
-    """:func:`cg_solve` semantics with backend auto-selection.
-
-    ``backend``: override the routing (one of :func:`select_backend`'s
-    values) — required to reach the fused DIA path under ``jit``, where the
-    data-dependent wrap check cannot run.
-
-    ``mixed_precision``: opt in to bf16-inner iterative refinement
-    (:func:`cgx.solve.ir.ir_cg_solve`) for fused-capable operators at
-    streaming scale — the returned residual is always the true fp32
-    ``‖b − A·x‖²``.  DIA operators route between the two bf16 modes by
-    the measured footprint model
-    (:func:`cgx.kernels.fused_dia_cg.bf16_plane_speedup`): bf16
-    coefficient planes + fp32 vectors wherever the model predicts
-    ≥1.15× (wide-tap always; narrow-band included — no vector-rounding
-    iteration inflation), bf16 vector streams otherwise.  Falls back to
-    the normal routing when the operator has no fused route or is below
-    ``FUSED_MIN_ROWS`` (the resident regime is not bandwidth-bound).
-    """
-    from cgx.kernels.fused_cg import fused_stencil_cg
-    from cgx.kernels.fused_dia_cg import fused_dia_cg
-    from cgx.kernels.fused_resident import (resident_dia_cg,
-                                            resident_stencil_cg)
-    from cgx.solve.precond import JacobiPrecond
-
+    """:func:`cg_solve` semantics for a vector ``b``; a 2-D ``b`` of shape
+    ``(n, k)`` routes to the batched :func:`cg_solve_multi` (per-column
+    convergence, fields carry a ``(k,)`` batch axis).  Jittable."""
     if b.ndim == 2:
-        from cgx.sparse.wbell import WBELLMatrix as _WB
-        if isinstance(a, _WB):
-            # Batched WBELL: one shared slot-plane stream for all k
-            # columns (cgx/solve/wbell.py) — full internal-layout
-            # preconditioner family as of round 5.
-            from cgx.solve.precond import JacobiPrecond as _JP
-            from cgx.solve.precond import PolynomialPrecond as _PP
-            from cgx.solve.wbell import (WBellBlockJacobiPrecond,
-                                         wbell_cg_solve_multi)
-            m = preconditioner
-            kw = dict(tol=tol, atol=atol, maxiter=maxiter)
-            if isinstance(m, _PP):
-                return wbell_cg_solve_multi(a, b, x0, precond="poly",
-                                            poly_steps=m.steps,
-                                            poly_omega=m.omega, **kw)
-            if isinstance(m, WBellBlockJacobiPrecond) or m in (
-                    "block_jacobi", "poly"):
-                return wbell_cg_solve_multi(a, b, x0, precond=m, **kw)
-            if m is not None and not isinstance(m, _JP):
-                raise ValueError(
-                    "wbell multi-RHS supports preconditioner=None, "
-                    "JacobiPrecond, PolynomialPrecond, "
-                    "WBellBlockJacobiPrecond, or 'block_jacobi'/'poly'")
-            return wbell_cg_solve_multi(
-                a, b, x0, jacobi=m is not None,
-                inv_diag=(m.inv_diag if isinstance(m, _JP) else None),
-                **kw)
-        # Multi-RHS block: route the batched solver (its own backend
-        # auto-selection picks the fused SpMM engine where it pays).
-        # Map this function's backend names onto cg_solve_multi's
-        # ("xla" forces the vmapped loop; any fused/resident override
-        # forces the band-stacked engine); reject options the batched
-        # path cannot honor rather than silently dropping them.
         if track_history:
             raise ValueError("track_history is not supported for "
                              "multi-RHS (2-D b) solves")
-        if mixed_precision:
-            raise ValueError("mixed_precision is single-RHS only; for "
-                             "multi-RHS use fused_dia_cg_multi("
-                             "plane_dtype=bfloat16) directly")
         from cgx.solve.block import cg_solve_multi
-        mb = "auto"
-        if backend is not None:
-            mb = "xla" if backend in ("xla", "padded") else "fused"
-        return cg_solve_multi(a, b, x0, tol=tol, atol=atol,
-                              maxiter=maxiter,
-                              preconditioner=preconditioner,
-                              backend=mb)
-    if backend is None:
-        backend = select_backend(a, b, preconditioner)
-    if backend == "wbell":
-        from cgx.solve.precond import JacobiPrecond as _JP
-        from cgx.solve.precond import PolynomialPrecond as _PP
-        from cgx.solve.wbell import (WBellBlockJacobiPrecond,
-                                     wbell_cg_solve)
-        m = preconditioner
-        if isinstance(m, _PP):
-            # Same polynomial (steps/omega over the matrix diagonal),
-            # applied in the internal layout through the WBELL matvec —
-            # each sweep is one slot-plane stream, no layout round-trip.
-            return wbell_cg_solve(a, b, x0, tol=tol, atol=atol,
-                                  maxiter=maxiter, precond="poly",
-                                  poly_steps=m.steps, poly_omega=m.omega,
-                                  track_history=track_history)
-        if isinstance(m, WBellBlockJacobiPrecond) or m in (
-                "block_jacobi", "poly"):
-            return wbell_cg_solve(a, b, x0, tol=tol, atol=atol,
-                                  maxiter=maxiter, precond=m,
-                                  track_history=track_history)
-        if m is not None and not isinstance(m, _JP):
-            raise ValueError(
-                "wbell backend supports preconditioner=None, "
-                "JacobiPrecond, PolynomialPrecond, 'poly', "
-                "'block_jacobi', or WBellBlockJacobiPrecond — all apply "
-                "in the internal layout (IC(0)-class appliers are "
-                "standard-order gathers that would forfeit the engine; "
-                "use format='csr' for those)")
-        inv_diag = m.inv_diag if isinstance(m, _JP) else None
-        return wbell_cg_solve(a, b, x0, tol=tol, atol=atol,
-                              maxiter=maxiter,
-                              jacobi=m is not None,
-                              inv_diag=inv_diag,
-                              track_history=track_history)
-    n = b.shape[0]
-    mi = int(maxiter) if maxiter is not None else n
-    if mixed_precision and not track_history and n >= FUSED_MIN_ROWS \
-            and backend in ("fused_stencil", "fused_dia",
-                            "sr_stencil", "sr_dia",
-                            "resident_stencil", "resident_dia"):
-        from cgx.solve.ir import ir_cg_solve
-        # Mode routing by the measured footprint model (PERF_NOTES
-        # 2h/2i): bf16 PLANES with fp32 vectors win where the planes are
-        # a large traffic fraction (wide-tap DIA: 1.39-6x) or where
-        # halving them flips the working set into VMEM residency — with
-        # no vector-rounding iteration inflation.  Below a ~1.15x
-        # predicted plane win, bf16 vectors (2e) are the only remaining
-        # lever (a measured end-to-end loss on well-conditioned systems,
-        # but the caller opted in).
-        from cgx.kernels.fused_dia_cg import bf16_plane_speedup
-        from cgx.sparse.types import DIAMatrix
-        if isinstance(a, DIAMatrix) and bf16_plane_speedup(
-                a, n, jnp.dtype(b.dtype).itemsize) >= 1.15:
-            return ir_cg_solve(a, b, x0, tol=tol, atol=atol, maxiter=mi,
-                               inner_dtype=jnp.float32,
-                               inner_plane_dtype=jnp.bfloat16,
-                               inner_tol=5e-3,
-                               preconditioner=preconditioner)
-        return ir_cg_solve(a, b, x0, tol=tol, atol=atol, maxiter=mi,
-                           preconditioner=preconditioner)
-    if backend.startswith("resident") and track_history:
-        # The whole-solve kernel doesn't track per-iteration history;
-        # fall back to the two-pass engine (big n) or the XLA loop.
-        backend = ("fused" + backend[len("resident"):]
-                   if n >= FUSED_MIN_ROWS else
-                   ("padded" if padded_length(n) != n else "xla"))
-    if backend in ("sr_stencil", "sr_dia") and track_history:
-        # Same whole-solve limitation as the resident kernel.
-        fb = "fused" + backend[len("sr"):]
-        backend = (fb if n >= FUSED_MIN_ROWS else
-                   ("padded" if padded_length(n) != n else "xla"))
-    if backend == "sr_stencil":
-        from cgx.kernels.fused_semiresident import sr_stencil_cg
-        return sr_stencil_cg(a, b, x0, tol=tol, atol=atol, maxiter=mi)
-    if backend == "sr_dia":
-        from cgx.kernels.fused_semiresident import sr_dia_cg
-        jac = isinstance(preconditioner, JacobiPrecond)
-        return sr_dia_cg(
-            a, b, x0, tol=tol, atol=atol, jacobi=jac,
-            inv_diag=preconditioner.inv_diag if jac else None,
-            maxiter=mi)
-    if backend == "resident_stencil":
-        return resident_stencil_cg(a, b, x0, tol=tol, atol=atol,
-                                   maxiter=mi)
-    if backend == "resident_dia":
-        jac = isinstance(preconditioner, JacobiPrecond)
-        return resident_dia_cg(
-            a, b, x0, tol=tol, atol=atol, jacobi=jac,
-            inv_diag=preconditioner.inv_diag if jac else None,
-            maxiter=mi)
-    if backend == "fused_stencil":
-        return fused_stencil_cg(a, b, x0, tol=tol, atol=atol, maxiter=mi,
-                                track_history=track_history)
-    if backend == "fused_dia":
-        # The caller's JacobiPrecond.inv_diag is passed through, so a
-        # custom diagonal keeps its exact trajectory.
-        jac = isinstance(preconditioner, JacobiPrecond)
-        return fused_dia_cg(
-            a, b, x0, tol=tol, atol=atol, jacobi=jac,
-            inv_diag=preconditioner.inv_diag if jac else None,
-            maxiter=mi, track_history=track_history)
-    if backend == "padded":
-        return cg_solve_padded(a, b, x0, tol=tol, atol=atol,
-                               maxiter=maxiter,
-                               preconditioner=preconditioner,
-                               track_history=track_history)
-    if backend != "xla":
-        raise ValueError(f"unknown backend {backend!r}")
+        return cg_solve_multi(a, b, x0, tol=tol, atol=atol, maxiter=maxiter,
+                              preconditioner=preconditioner)
     from cgx.solve.cg import cg_solve
     return cg_solve(a, b, x0, tol=tol, atol=atol, maxiter=maxiter,
                     preconditioner=preconditioner,

@@ -26,7 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from cgx.ops import blas
-from cgx.solve.cg import CGResult, as_matvec, _as_apply
+from cgx.solve.cg import CGResult, _as_apply, _settled, as_matvec
 
 __all__ = ["chebyshev_solve", "estimate_bounds", "analytic_bounds"]
 
@@ -46,7 +46,7 @@ def analytic_bounds(a) -> Optional[Tuple[float, float]]:
     analytically" case).  Returns Python floats (static under jit)."""
     import math
 
-    from cgx.kernels.fused_cg import stencil_taps
+    from cgx.sparse.grid import stencil_taps
 
     spec = stencil_taps(a)
     if spec is None:
@@ -93,9 +93,9 @@ def _dia_constant_taps(a):
     boundary-crossing slots), or ``None``.  Host-side, concrete data."""
     import numpy as np
 
-    from cgx.kernels.fused_dia_cg import dia_engine_spec
+    from cgx.sparse.grid import dia_grid_taps
 
-    spec = dia_engine_spec(a)
+    spec = dia_grid_taps(a)
     if spec is None:
         return None
     nx, ny, nz, taps = spec
@@ -211,19 +211,20 @@ def chebyshev_solve(
     bb = blas.norm_sq(b, axis_name)
     tol_sq = jnp.asarray(tol, dtype) ** 2 * bb
 
-    if x0 is None:
-        x0 = jnp.zeros_like(b)
-        r0 = b
-    else:
-        r0 = b - matvec(x0)
-
-    z0 = apply_m(r0) if apply_m is not None else r0
-    d0 = z0 / theta
-    rr0 = blas.norm_sq(r0, axis_name)
-
-    # Carry: (x, r, d, rho, k, rr).  rho is the Chebyshev recursion scalar.
-    state0 = (x0 + d0, r0 - matvec(d0), d0, 1.0 / sigma1,
-              jnp.ones((), jnp.int32), rr0)
+    def run(x0, k0, aux):
+        if x0 is None:
+            x0 = jnp.zeros_like(b)
+            r0 = b
+        else:
+            r0 = b - matvec(x0)
+        z0 = apply_m(r0) if apply_m is not None else r0
+        d0 = z0 / theta
+        rr0 = blas.norm_sq(r0, axis_name)
+        # Carry: (x, r, d, rho, k, rr); rho is the Chebyshev recursion
+        # scalar.
+        x, r, d, rho, k, rr = jax.lax.while_loop(cond, body, (
+            x0 + d0, r0 - matvec(d0), d0, 1.0 / sigma1, k0 + 1, rr0))
+        return x, k, blas.norm_sq(r, axis_name), aux
 
     def cond(c):
         x, r, d, rho, k, rr = c
@@ -243,8 +244,4 @@ def chebyshev_solve(
             lambda: rr)
         return (x, r, d, rho_new, k + 1, rr)
 
-    x, r, d, rho, k, rr = jax.lax.while_loop(cond, body, state0)
-    rr_final = blas.norm_sq(r, axis_name)
-    return CGResult(x=x, iterations=k, residual_norm_sq=rr_final,
-                    converged=rr_final <= tol_sq,
-                    history=jnp.zeros((0,), dtype))
+    return _settled(run, x0, matvec, b, tol_sq, maxiter, axis_name)

@@ -8,14 +8,14 @@ phase") happens once on host/device before the solve, ``apply`` runs inside
 the CG ``while_loop`` and must be cheap, fused, and free of data-dependent
 shapes.
 
-TPU notes:
+Notes:
 
 * :class:`JacobiPrecond` — one elementwise multiply; fuses into the loop
   body at zero bandwidth cost beyond reading ``inv_diag``.
 * :class:`BlockJacobiPrecond` — batched dense ``(bs, bs)`` block inverse
-  applied with a batched matvec → MXU work, still fully fused.
-* IC(0) lives in :mod:`cgx.solve.ic0` — sparse triangular solves fight the
-  TPU's SIMD model, so it is implemented with host-side factorization and
+  applied with a batched matvec, still fully fused.
+* IC(0) lives in :mod:`cgx.solve.ic0` — sparse triangular solves are
+  sequential by row, so it is implemented with host-side factorization and
   level-scheduled on-device solves.
 """
 from __future__ import annotations
@@ -54,10 +54,10 @@ class BlockJacobiPrecond:
     """Block-Jacobi: ``M⁻¹ = blockdiag(D₁⁻¹, …, D_k⁻¹)``.
 
     ``inv_blocks`` holds the dense inverses of the ``(bs, bs)`` diagonal
-    blocks of A; ``apply`` is a batched matvec that runs on the MXU.  Serves
-    both as a standalone preconditioner and as the TPU-friendly fallback
-    where a sequential IC(0) triangular solve would not map to the hardware
-    (SURVEY.md §7 "hard parts").
+    blocks of A; ``apply`` is a batched matvec.  Serves both as a
+    standalone preconditioner and as the data-parallel fallback where a
+    sequential IC(0) triangular solve would serialize (SURVEY.md §7 "hard
+    parts").
     """
 
     inv_blocks: jnp.ndarray   # (n_blocks, bs, bs)
@@ -101,7 +101,9 @@ class BlockJacobiPrecond:
         pad = nb * bs - n
         rp = jnp.pad(r, (0, pad)) if pad else r
         rb = rp.reshape(nb, bs)
+        # HIGHEST: keep a float32 contraction out of TF32 on a GPU.
         zb = jnp.einsum("bij,bj->bi", self.inv_blocks, rb,
+                        precision=jax.lax.Precision.HIGHEST,
                         preferred_element_type=r.dtype)
         z = zb.reshape(-1)
         return z[:n] if pad else z
@@ -116,7 +118,7 @@ class PolynomialPrecond:
     SPD preconditioner for CG when ``ω < 2 / λ_max(D⁻¹A)`` (``ω = 2/3`` is
     safe for diagonally dominant stencils).
 
-    This is the TPU-shaped alternative to IC(0)'s triangular sweeps
+    This is the data-parallel alternative to IC(0)'s triangular sweeps
     (SURVEY.md §7 "hard parts"): each step is one SpMV + fused axpys — pure
     streaming work, no sequential row dependencies, and it distributes for
     free (the matvec may be a ``shard_map``-local closure).

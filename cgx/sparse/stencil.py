@@ -2,7 +2,7 @@
 
 The reference stores its Poisson-type matrices explicitly in CSR and pays
 O(n²) per SpMV (``mv_ops.c:160-201``).  For constant-coefficient
-finite-difference operators the TPU-native design stores *nothing*: the
+finite-difference operators this design stores *nothing*: the
 matrix action is a handful of statically-shifted multiply-adds whose
 boundary masks are recomputed on the fly from index arithmetic (iota +
 compare — register work, zero HBM traffic).  SpMV bandwidth then drops to
@@ -25,15 +25,6 @@ import jax.numpy as jnp
 
 __all__ = ["Stencil2D", "Stencil3D", "GeneralStencil3D", "poisson2d_stencil",
            "poisson3d_stencil", "poisson3d_27point"]
-
-
-def _shift1(x, offset: int):
-    """``out[i] = x[i + offset]`` with zero fill (static offset, 1-D)."""
-    n = x.shape[0]
-    z = jnp.zeros((abs(offset),), x.dtype)
-    if offset > 0:
-        return jnp.concatenate([x[offset:], z])
-    return jnp.concatenate([z, x[:n + offset]])
 
 
 def _shift2(g, axis: int, sign: int):
@@ -84,27 +75,13 @@ class Stencil2D:
 
     def matvec(self, x: jnp.ndarray) -> jnp.ndarray:
         # Expressed as pad-shifted adds (no scatter): XLA fuses the whole
-        # sum into one elementwise pass — scatter (.at[].add) formulations
-        # compile to ~5x slower code on TPU (measured).
+        # sum into one elementwise pass.
         g = x.reshape(self.nx, self.ny)
         y = self.c_center * g
         y = y + self.c_y * _shift2(g, 1, +1) + self.c_y * _shift2(g, 1, -1)
         y = y + self.c_x * _shift2(g, 0, +1) + self.c_x * _shift2(g, 0, -1)
         return y.reshape(-1)
 
-    def matvec_padded(self, x_pad: jnp.ndarray) -> jnp.ndarray:
-        """Flat masked matvec on a zero-tail padded vector (see
-        :meth:`Stencil3D.matvec_padded`)."""
-        n = self.nx * self.ny
-        ny = self.ny
-        idx = jnp.arange(x_pad.shape[0], dtype=jnp.int32)
-        j = idx % ny
-        y = self.c_center * x_pad
-        y = y + jnp.where(j < ny - 1, self.c_y * _shift1(x_pad, 1), 0.0)
-        y = y + jnp.where(j > 0, self.c_y * _shift1(x_pad, -1), 0.0)
-        y = y + self.c_x * _shift1(x_pad, ny)
-        y = y + self.c_x * _shift1(x_pad, -ny)
-        return jnp.where(idx < n, y, 0.0)
 
 
 @jax.tree_util.register_dataclass
@@ -125,19 +102,11 @@ class Stencil3D:
     c_z: float = dataclasses.field(metadata=dict(static=True))
     dtype_name: str = dataclasses.field(default="float32",
                                         metadata=dict(static=True))
-    # "xla" (fused shifted adds — roofline at tile-exact sizes) or
-    # "pallas" (explicit halo-window kernel — size-independent; see
-    # cgx/kernels/stencil.py and docs/PERF_NOTES.md).
-    backend: str = dataclasses.field(default="xla",
-                                     metadata=dict(static=True))
 
     @property
     def shape(self) -> Tuple[int, int]:
         n = self.nx * self.ny * self.nz
         return (n, n)
-
-    def with_backend(self, backend: str) -> "Stencil3D":
-        return dataclasses.replace(self, backend=backend)
 
     @property
     def dtype(self):
@@ -156,36 +125,6 @@ class Stencil3D:
         y = y + self.c_x * _shift3(g, 0, +1) + self.c_x * _shift3(g, 0, -1)
         return y.reshape(-1)
 
-    def matvec_padded(self, x_pad: jnp.ndarray) -> jnp.ndarray:
-        """Matvec on a zero-padded flat vector (``len(x_pad) >= n``).
-
-        Flat formulation: statically-shifted 1-D adds with boundary masks
-        from index arithmetic (iota + mod/compare — register work).  TPU
-        tiles 1-D buffers in (8, 128) blocks, so off-tile problem sizes
-        (e.g. 216³) run several-fold under roofline in the reshaped 3-D
-        formulation; solving in a 1024-padded flat space recovers it (the
-        padded rows are masked to zero, exactly like the distributed
-        layer's shard-equalization padding).
-        """
-        n = self.nx * self.ny * self.nz
-        if self.backend == "pallas":
-            from cgx.kernels.stencil import stencil3d_spmv_pallas
-            y = stencil3d_spmv_pallas(
-                x_pad[:n], nx=self.nx, ny=self.ny, nz=self.nz,
-                coeffs=(self.c_center, self.c_x, self.c_y, self.c_z))
-            return jnp.pad(y, (0, x_pad.shape[0] - n))
-        nz, ny = self.nz, self.ny
-        idx = jnp.arange(x_pad.shape[0], dtype=jnp.int32)
-        k = idx % nz
-        j = (idx // nz) % ny
-        y = self.c_center * x_pad
-        y = y + jnp.where(k < nz - 1, self.c_z * _shift1(x_pad, 1), 0.0)
-        y = y + jnp.where(k > 0, self.c_z * _shift1(x_pad, -1), 0.0)
-        y = y + jnp.where(j < ny - 1, self.c_y * _shift1(x_pad, nz), 0.0)
-        y = y + jnp.where(j > 0, self.c_y * _shift1(x_pad, -nz), 0.0)
-        y = y + self.c_x * _shift1(x_pad, ny * nz)
-        y = y + self.c_x * _shift1(x_pad, -ny * nz)
-        return jnp.where(idx < n, y, 0.0)
 
 
 def _shiftk(g, axis: int, off: int):

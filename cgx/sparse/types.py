@@ -1,6 +1,6 @@
 """Sparse matrix containers as JAX pytrees.
 
-TPU-native re-design of the reference's single unified container
+Re-design of the reference's single unified container
 ``struct __mv_sparse`` (reference ``mv_ops.h:17-23``), which overloads one
 struct as either a CSR matrix (all fields set) or a dense vector
 (``nnz == size``, index arrays NULL — ``mv_ops.c:23-37``).  Here vectors are
@@ -14,15 +14,15 @@ Formats:
 * :class:`CSRMatrix` — compressed rows (the reference's format); carries a
   cached ``row_indices`` array so the XLA SpMV path needs no per-call
   ``searchsorted`` over ``indptr``.
-* :class:`BSRMatrix` — block CSR with dense ``(bs, bs)`` blocks; blocks feed
-  the MXU (systolic array) directly.
-* :class:`ELLMatrix` — row-padded ELLPACK; fixed row width gives the static
-  shapes the TPU vector unit wants (gather + multiply + row-sum).
+* :class:`BSRMatrix` — block CSR with dense ``(bs, bs)`` blocks (one small
+  dense contraction per block).
+* :class:`ELLMatrix` — row-padded ELLPACK; a fixed row width gives static
+  shapes (gather + multiply + row-sum, no segment ids).
 * :class:`DIAMatrix` — diagonal/stencil storage with *static* offsets; SpMV
   lowers to shifted elementwise FMAs that XLA fully fuses (the
   speed-of-light path for Poisson-type stencil operators).
 
-All index arrays are ``int32`` (TPU-native integer width).  All containers
+All index arrays are ``int32``.  All containers
 are registered with :func:`jax.tree_util.register_dataclass`: array fields
 are pytree leaves, shape/offsets/blocksize are static aux data.
 """
@@ -47,6 +47,8 @@ __all__ = [
     "bsr_from_csr",
     "ell_from_csr",
     "dia_from_csr",
+    "pick_format",
+    "auto_format",
 ]
 
 
@@ -139,7 +141,7 @@ class CSRMatrix:
 class BSRMatrix:
     """Block-CSR matrix with dense ``(bs, bs)`` blocks.
 
-    Dense blocks map straight onto the MXU: the SpMV is a batched
+    The SpMV is a batched
     ``(bs, bs) @ (bs,)`` (SpMM: ``(bs, bs) @ (bs, k)``) contraction plus a
     block-row segment-sum.
     """
@@ -172,9 +174,9 @@ class ELLMatrix:
 
     Every row stores exactly ``width`` (value, column) pairs; short rows are
     padded with ``value = 0`` and an in-range dummy column, so gathers stay
-    in-bounds and padding contributes nothing.  Static ``(n, width)`` shapes
-    are what the TPU wants: SpMV is gather → multiply → row-sum with no
-    data-dependent shapes.
+    in-bounds and padding contributes nothing.  With static ``(n, width)``
+    shapes SpMV is gather → multiply → row-sum with no data-dependent
+    shapes.
     """
 
     values: jnp.ndarray        # (n_rows, width) float
@@ -193,6 +195,12 @@ class ELLMatrix:
         return ELLMatrix(self.values.astype(dtype), self.col_indices,
                          self.shape)
 
+    def diagonal(self) -> jnp.ndarray:
+        # Padding slots point at the row itself with value 0: no effect.
+        rows = jnp.arange(self.shape[0], dtype=self.col_indices.dtype)
+        return jnp.sum(jnp.where(self.col_indices == rows[:, None],
+                                 self.values, 0), axis=1)
+
 
 @jax.tree_util.register_dataclass
 @dataclass(frozen=True)
@@ -206,8 +214,8 @@ class DIAMatrix:
 
     ``grid``: optional static ``(nx, ny, nz)`` metadata for operators
     discretized on a 3-D grid (2-D: ``nz = 1``-style collapse is up to
-    the caller).  Generators set it; the fused Pallas paths use it to
-    decompose *arbitrary* banded offset sets into ``(dx, dy, dk)`` taps
+    the caller).  Generators set it; :mod:`cgx.sparse.grid` uses it to
+    decompose *arbitrary* banded offset sets into ``(dx, dy, dz)`` taps
     (without it only the exact 7-point pattern is auto-detected).
     """
 
@@ -292,7 +300,7 @@ def ell_from_csr(a: CSRMatrix, width: int | None = None,
     """Convert CSR → padded ELLPACK (host-side).
 
     ``width`` defaults to the max row length, rounded up to
-    ``width_multiple`` (use 128 to align the padded width to TPU lanes).
+    ``width_multiple``.
     Padding entries get ``value = 0`` and column = the row's own index
     (always in range for square matrices), so gathers stay in-bounds.
     """
@@ -341,3 +349,25 @@ def dia_from_csr(a: CSRMatrix) -> DIAMatrix:
     return DIAMatrix(data=jnp.asarray(data),
                      offsets=tuple(int(o) for o in uniq),
                      shape=(n, m))
+
+
+def pick_format(a, *, ell_waste_max: float = 1.5) -> str:
+    """Storage decision for a general CSR operator, without building it:
+    ``"ell"`` when padding every row to the 8-rounded maximum degree stores
+    at most ``ell_waste_max`` slots per nonzero (static-shape gathers, no
+    segment reduce), else ``"csr"``.
+
+    ``a`` needs only ``.indptr`` / ``.shape`` / ``.nnz`` (cgx CSRMatrix or
+    scipy).
+    """
+    deg = np.diff(np.asarray(a.indptr))
+    w = -(-int(deg.max()) // 8) * 8
+    waste = float(w * a.shape[0]) / max(int(np.asarray(a.nnz)), 1)
+    return "ell" if waste <= ell_waste_max else "csr"
+
+
+def auto_format(a, *, ell_waste_max: float = 1.5):
+    """``(operator, fmt)``: ``a`` converted per :func:`pick_format`."""
+    if pick_format(a, ell_waste_max=ell_waste_max) == "ell":
+        return ell_from_csr(a, width_multiple=8), "ell"
+    return a, "csr"

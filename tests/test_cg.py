@@ -383,11 +383,11 @@ def test_solve_clean_under_debug_nans(rng):
 
 
 def test_auto_solve_routes_and_matches(rng):
-    """auto_solve (CPU: padded/standard routes) matches cg_solve."""
+    """auto_solve matches cg_solve on stored and matrix-free operators."""
     import cgx
     from cgx.io.poisson import poisson2d
     from cgx.sparse.stencil import poisson3d_stencil
-    a = poisson2d(11, 13)            # off-tile n=143 -> padded route
+    a = poisson2d(11, 13)
     b = jnp.asarray(rng.standard_normal(143))
     ref = cgx.cg_solve(a, b, tol=1e-10, maxiter=500)
     res = cgx.auto_solve(a, b, tol=1e-10, maxiter=500)
@@ -395,7 +395,7 @@ def test_auto_solve_routes_and_matches(rng):
     np.testing.assert_allclose(np.asarray(res.x), np.asarray(ref.x),
                                rtol=1e-9, atol=1e-11)
 
-    s = poisson3d_stencil(8, 8, 8)   # 512 rows, tile-exact -> standard
+    s = poisson3d_stencil(8, 8, 8)
     b2 = jnp.asarray(rng.standard_normal(512), jnp.float32)
     res2 = cgx.auto_solve(s, b2, tol=1e-5, maxiter=500)
     assert bool(res2.converged)
@@ -725,3 +725,123 @@ def test_estimate_bounds_respects_dtype(rng):
     a32 = poisson3d_dia(4, 4, 4, dtype=np.float32)
     lmin32, lmax32 = estimate_bounds(a32, 64, dtype=jnp.float32)
     assert lmin32.dtype == jnp.float32
+
+
+# -- convergence is judged on the true residual ------------------------------
+
+def _true_rel(a, b, x):
+    import scipy.sparse as sp
+    a_sp = sp.csr_matrix((np.asarray(a.values, np.float64),
+                          np.asarray(a.col_indices), np.asarray(a.indptr)),
+                         shape=a.shape)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(b - a_sp @ np.asarray(x, np.float64))
+                 / np.linalg.norm(b))
+
+
+def _fp32_poisson(side, seed=0):
+    a = poisson2d(side, side, dtype=np.float32)
+    b = jnp.asarray(np.random.default_rng(seed).standard_normal(side * side),
+                    jnp.float32)
+    return a, b
+
+
+def _solvers():
+    import cgx
+    from cgx.solve.chebyshev import analytic_bounds, chebyshev_solve
+
+    def cheb(a, b, tol):
+        from cgx.sparse.stencil import poisson2d_stencil
+        lo, hi = analytic_bounds(poisson2d_stencil(128, 128))
+        return chebyshev_solve(a, b, lo, hi, tol=tol, maxiter=20000)
+
+    return {
+        "cg": lambda a, b, tol: cg_solve(a, b, tol=tol, maxiter=5000),
+        "single_reduction": lambda a, b, tol: cgx.cg_solve_single_reduction(
+            a, b, tol=tol, maxiter=5000),
+        "pipelined": lambda a, b, tol: cgx.cg_solve_pipelined(
+            a, b, tol=tol, maxiter=5000, adaptive_replace=True),
+        "chebyshev": cheb,
+        "multi": lambda a, b, tol: cgx.cg_solve_multi(
+            a, jnp.stack([b, -b], axis=1), tol=tol, maxiter=5000),
+        "block": lambda a, b, tol: cgx.block_cg_solve(
+            a, jnp.stack([b, b[::-1]], axis=1), tol=tol, maxiter=5000),
+    }
+
+
+@pytest.mark.parametrize("name", ["cg", "single_reduction", "pipelined",
+                                  "chebyshev", "multi", "block"])
+def test_fp32_solvers_report_true_residual(name):
+    """128² Poisson in fp32 at tol 1e-6: the recurrence alone ends ~10x
+    off the true residual; every solver reports the true residual and
+    claims convergence only within TRUE_SLACK of the tolerance."""
+    from cgx.solve.cg import TRUE_SLACK
+    a, b = _fp32_poisson(128)
+    tol = 1e-6
+    res = _solvers()[name](a, b, tol)
+    x = np.asarray(res.x)
+    bs = np.asarray(b)
+    if name == "multi":
+        bs = np.stack([bs, -bs], axis=1)
+    elif name == "block":
+        bs = np.stack([bs, bs[::-1]], axis=1)
+    cols = range(x.shape[1]) if x.ndim == 2 else [None]
+    for j, conv, rn in zip(cols, np.atleast_1d(np.asarray(res.converged)),
+                           np.atleast_1d(np.asarray(res.residual_norm))):
+        xj, bj = (x, bs) if j is None else (x[:, j], bs[:, j])
+        true = _true_rel(a, bj, xj)
+        reported = float(rn) / float(np.linalg.norm(bj))
+        np.testing.assert_allclose(reported, true, rtol=0.2)
+        assert bool(conv), name
+        assert true <= TRUE_SLACK * tol
+
+
+def test_restarts_close_the_fp32_drift():
+    """The first pass ends with the true residual ~7x above tol on 64²;
+    restarting from it reaches the tolerance itself in a few extra
+    iterations, and restarts=0 keeps the single pass, reported honestly."""
+    a, b = _fp32_poisson(64)
+    once = cg_solve(a, b, tol=1e-6, maxiter=2000, restarts=0)
+    settled = cg_solve(a, b, tol=1e-6, maxiter=2000)
+    t_once = _true_rel(a, b, once.x)
+    t_settled = _true_rel(a, b, settled.x)
+    assert t_once > 3e-6                       # the recurrence drifted
+    np.testing.assert_allclose(
+        float(once.residual_norm) / float(jnp.linalg.norm(b)), t_once,
+        rtol=0.05)
+    assert t_settled <= 1e-6 * 1.05
+    assert 0 < int(settled.iterations) - int(once.iterations) <= 20
+    assert bool(once.converged) and bool(settled.converged)
+
+
+def test_stalled_fp32_solve_reports_not_converged():
+    """An fp32 iterate that stalls well above tol (thermal2 stand-in,
+    Jacobi) is reported as not converged, with its true residual, where
+    the recurrence alone would claim the tolerance."""
+    import cgx
+    from cgx.io.suitesparse import standin
+    a64 = standin("thermal2", seed=0, scale=0.01)
+    a = a64.astype(jnp.float32)
+    b = jnp.asarray(np.random.default_rng(1).standard_normal(a.shape[0]),
+                    jnp.float32)
+    m = cgx.JacobiPrecond.from_matrix(a)
+    once = cg_solve(a, b, tol=1e-6, maxiter=20000, preconditioner=m,
+                    restarts=0)
+    res = cg_solve(a, b, tol=1e-6, maxiter=20000, preconditioner=m)
+    true = _true_rel(a64, b, res.x)
+    assert _true_rel(a64, b, once.x) > 10e-6
+    assert not bool(res.converged)
+    np.testing.assert_allclose(
+        float(res.residual_norm) / float(jnp.linalg.norm(b)), true,
+        rtol=0.2)
+
+
+def test_settle_is_a_noop_when_the_recurrence_is_honest(rng):
+    """fp64: the true residual meets tol at the first exit, so no restart
+    runs and the trajectory is plain CG's."""
+    a = poisson2d(24, 24)
+    b = jnp.asarray(rng.standard_normal(576))
+    ref = cg_solve(a, b, tol=1e-9, maxiter=1000, restarts=0)
+    res = cg_solve(a, b, tol=1e-9, maxiter=1000)
+    assert int(res.iterations) == int(ref.iterations)
+    np.testing.assert_array_equal(np.asarray(res.x), np.asarray(ref.x))

@@ -4,6 +4,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from cgx.cli import main
 
@@ -122,68 +123,14 @@ def test_native_format_roundtrip(tmp_path, rng):
 
 
 def test_bench_json_reports_path(capsys):
-    """`cgx bench` routes through auto_solve and reports the selected
-    backend (VERDICT r1 #10)."""
+    """`cgx bench` routes through auto_solve and reports the operator
+    format and the device it ran on."""
     code, out, err = run_cli(
         ["bench", "--poisson", "16x16", "--format", "dia", "--dtype", "f64",
          "--precond", "jacobi", "--reps", "1"], capsys)
     assert code == 0
     rec = json.loads(out.strip())
-    assert rec["path"] in ("xla", "padded")      # CPU: no fused routing
-
-
-def test_select_backend_routes_fused_on_tpu(monkeypatch, rng):
-    """A >=2M-row stencil config selects the fused path on TPU (simulated
-    backend — CPU CI), and a wrap-dirty DIA falls back."""
-    import cgx.solve.auto as auto
-    from cgx.sparse.stencil import poisson3d_stencil
-    from cgx.io.poisson import poisson3d_dia
-    from cgx.sparse.types import DIAMatrix
-    import jax.numpy as jnp
-    import numpy as np
-
-    monkeypatch.setattr(auto.jax, "default_backend", lambda: "tpu")
-
-    s = poisson3d_stencil(160, 160, 160)     # 4.1 M rows (>= FUSED_MIN_ROWS)
-    b = jnp.zeros((s.shape[0],), jnp.float32)
-    # Past full residency but within the semi-resident ladder ("rpq" at
-    # 160^3) -> the residency-ladder whole-solve kernel.
-    assert auto.select_backend(s, b) == "sr_stencil"
-    # Past every semi-resident tier -> the streaming two-pass engine.
-    s_huge = poisson3d_stencil(430, 430, 430)
-    b_huge = jnp.zeros((s_huge.shape[0],), jnp.float32)
-    assert auto.select_backend(s_huge, b_huge) == "fused_stencil"
-
-    # DIA: semi-resident (rpq + streamed planes) when wrap-free and the
-    # tier fits... (tiny data stretched is fine: only the shape/pattern
-    # and wrap slots matter for routing)
-    a = poisson3d_dia(160, 160, 160, dtype=np.float32)
-    assert auto.select_backend(a, b) == "sr_dia"
-    # ... and the streaming two-pass engine past the rpq tier.
-    a_big = poisson3d_dia(256, 256, 256, dtype=np.float32)
-    b_big = jnp.zeros((a_big.shape[0],), jnp.float32)
-    assert auto.select_backend(a_big, b_big) == "fused_dia"
-    data = np.asarray(a.data).copy()
-    data[4, 160 * 160 - 1] = 1.0             # x-plane-crossing slot
-    dirty = DIAMatrix(data=jnp.asarray(data), offsets=a.offsets,
-                      shape=a.shape)
-    assert auto.select_backend(dirty, b) == "xla"
-
-    # Small problems stay on XLA even on TPU.
-    s_small = poisson3d_stencil(16, 16, 16)
-    b2 = jnp.zeros((s_small.shape[0],), jnp.float32)
-    assert auto.select_backend(s_small, b2) in ("xla", "padded")
-
-    # VMEM-resident sizes route to the whole-solve kernel (the headline
-    # 128^3 config: 23.0 vs XLA's 42.8 us/iter measured on-chip).
-    s_mid = poisson3d_stencil(128, 128, 128)
-    b3 = jnp.zeros((s_mid.shape[0],), jnp.float32)
-    assert auto.select_backend(s_mid, b3) == "resident_stencil"
-    a_mid = poisson3d_dia(128, 128, 128, dtype=np.float32)
-    assert auto.select_backend(a_mid, b3) == "resident_dia"
-    # ... but not when the working set exceeds VMEM (160^3 stencil needs
-    # ~105 MB for all five vectors) — those take the semi-resident ladder.
-    assert auto.select_backend(s, b) == "sr_stencil"
+    assert rec["format"] == "DIAMatrix" and rec["device"] == "cpu"
 
 
 def test_solve_distributed_method_flag(capsys):
@@ -192,16 +139,6 @@ def test_solve_distributed_method_flag(capsys):
         ["solve", "--poisson", "16x16", "--format", "dia", "--dtype", "f64",
          "--precond", "jacobi", "--devices", "8", "--tol", "1e-8",
          "--method", "single_reduction"], capsys)
-    assert code == 0
-    assert "converged=True" in err
-
-
-def test_solve_distributed_fused_stencil(capsys):
-    """--devices with a stencil source now routes the fused shard_map
-    engine (used to SystemExit)."""
-    code, out, err = run_cli(
-        ["solve", "--poisson", "16x6x7", "--format", "stencil",
-         "--dtype", "f32", "--devices", "8", "--tol", "1e-5"], capsys)
     assert code == 0
     assert "converged=True" in err
 
@@ -238,21 +175,6 @@ def test_solve_accuracy_df64(tmp_path, capsys):
     assert "converged=True" in err
 
 
-def test_solve_format_wbell(tmp_path, capsys):
-    """--format wbell reaches the engine from a plain file input (VERDICT
-    r3 #5: the reference UX — file in, solve, print out)."""
-    p = str(tmp_path / "prob.txt")
-    code, out, err = run_cli(["gen", "--poisson", "12x12", "--out", p],
-                             capsys)
-    assert code == 0
-    code, out, err = run_cli(
-        ["solve", "--input", p, "--format", "wbell", "--tol", "1e-6",
-         "--precond", "jacobi"], capsys)
-    assert code == 0, err
-    assert "format=wbell" in err and "build_s=" in err and "fill=" in err
-    assert "converged=True" in err
-
-
 def test_solve_format_auto_reports_pick(tmp_path, capsys):
     p = str(tmp_path / "prob.txt")
     run_cli(["gen", "--poisson", "10x10", "--out", p], capsys)
@@ -264,108 +186,10 @@ def test_solve_format_auto_reports_pick(tmp_path, capsys):
     assert "converged=True" in err
 
 
-def test_solve_format_wbell_rejects_ic0(tmp_path, capsys):
-    import pytest
-    p = str(tmp_path / "prob.txt")
-    run_cli(["gen", "--poisson", "12x12", "--out", p], capsys)
-    with pytest.raises(SystemExit, match="wbell"):
-        main(["solve", "--input", p, "--format", "wbell",
-              "--precond", "ic0"])
-
-
-def test_bench_format_wbell(capsys):
-    code, out, err = run_cli(
-        ["bench", "--poisson", "12x12x12", "--format", "wbell",
-         "--reps", "1", "--tol", "1e-5"], capsys)
-    assert code == 0, err
-    rec = json.loads(out.strip().splitlines()[-1])
-    assert rec["format"] == "WBELLMatrix"
-    assert rec["path"] == "wbell"
-    assert rec["nnz"] > 0              # true nnz, not the densified fill
-    assert rec["converged"]
-
-
-def test_solve_df64_wbell_inner(tmp_path, capsys):
-    """--accuracy df64 --format wbell: the composed accuracy+engine path."""
-    p = str(tmp_path / "prob.txt")
-    run_cli(["gen", "--poisson", "12x12", "--out", p], capsys)
-    code, out, err = run_cli(
-        ["solve", "--input", p, "--format", "wbell", "--accuracy", "df64",
-         "--tol", "1e-8", "--precond", "jacobi"], capsys)
-    assert code == 0, err
-    assert "df64 outer cycles=" in err
-    assert "converged=True" in err
-
-
-def test_solve_format_wbell_new_preconds(tmp_path, capsys):
-    """--format wbell now accepts poly and block-jacobi (round 4:
-    internal-layout applies), still rejects ic0."""
-    p = str(tmp_path / "prob.txt")
-    run_cli(["gen", "--poisson", "14x14", "--out", p], capsys)
-    for pc in ("poly", "block-jacobi"):
-        code, out, err = run_cli(
-            ["solve", "--input", p, "--format", "wbell", "--tol", "1e-6",
-             "--precond", pc], capsys)
-        assert code == 0, err
-        assert "converged=True" in err
-
-
-def test_solve_wbell_distributed(tmp_path, capsys):
-    """--format wbell --devices 4: the row-partitioned WBELL engine under
-    shard_map (round 4)."""
-    p = str(tmp_path / "prob.txt")
-    run_cli(["gen", "--poisson", "40x40", "--out", p], capsys)
-    code, out, err = run_cli(
-        ["solve", "--input", p, "--format", "wbell", "--devices", "4",
-         "--tol", "1e-6", "--precond", "jacobi"], capsys)
-    assert code == 0, err
-    assert "format=wbell (distributed)" in err
-    assert "converged=True" in err
-
-
-def test_solve_prebuilt_wbell_npz(tmp_path, capsys):
-    """A prebuilt WBELL operator loads from .npz and solves directly -
-    no rebuild (round 4: the host build amortizes across processes)."""
-    import scipy.sparse as sp
-    import cgx
-    from cgx.io.native_format import save_matrix
-
-    rng = np.random.default_rng(0)
-    a = sp.random(500, 500, density=0.02, random_state=3, format="csr")
-    a = sp.csr_matrix((a + a.T) + sp.eye(500) * 12.0)
-    w = cgx.wbell_from_csr(a)
-    p = str(tmp_path / "op.npz")
-    save_matrix(p, w)
-    code, out, err = run_cli(
-        ["solve", "--input", p, "--tol", "1e-6", "--precond", "jacobi"],
-        capsys)
-    assert code == 0, err
-    assert "format=wbell (prebuilt)" in err
-    assert "converged=True" in err
-
-
-def test_solve_save_operator_roundtrip(tmp_path, capsys):
-    """--save-operator persists the built WBELL; a second run loads it."""
-    p = str(tmp_path / "prob.txt")
-    op = str(tmp_path / "op.npz")
-    run_cli(["gen", "--poisson", "20x20", "--out", p], capsys)
-    code, out, err = run_cli(
-        ["solve", "--input", p, "--format", "wbell", "--tol", "1e-6",
-         "--save-operator", op], capsys)
-    assert code == 0, err
-    assert "operator saved" in err
-    code, out, err = run_cli(
-        ["solve", "--input", op, "--tol", "1e-6", "--precond", "jacobi"],
-        capsys)
-    assert code == 0, err
-    assert "format=wbell (prebuilt)" in err and "converged=True" in err
-
-
 def test_solve_file_input_defaults_to_auto_format(tmp_path, capsys):
     """No --format flag + a file input → the auto pick runs and is
-    reported (VERDICT r4 weak #2: the reference-class user — `cg <file>
-    <iters>`, cg.c:42-85 — reaches the measured-best storage with no
-    extra flags; on TPU at ≥30 k irregular rows that pick is wbell)."""
+    reported (the reference-class user — `cg <file> <iters>`,
+    cg.c:42-85 — gets a storage pick with no extra flags)."""
     p = str(tmp_path / "prob.txt")
     run_cli(["gen", "--poisson", "10x10", "--out", p], capsys)
     code, out, err = run_cli(
@@ -385,23 +209,6 @@ def test_solve_poisson_keeps_csr_default(capsys):
     assert "converged=True" in err
 
 
-def test_solve_prebuilt_wbell_npz_rejects_f64(tmp_path, capsys):
-    """--input op.npz --dtype f64 must raise the same fp32-storage error
-    as the CSR build path (ADVICE r4), not silently solve in fp32."""
-    import pytest
-    import scipy.sparse as sp
-    import cgx
-    from cgx.io.native_format import save_matrix
-
-    a = sp.random(500, 500, density=0.02, random_state=3, format="csr")
-    a = sp.csr_matrix((a + a.T) + sp.eye(500) * 12.0)
-    w = cgx.wbell_from_csr(a)
-    p = str(tmp_path / "op.npz")
-    save_matrix(p, w)
-    with pytest.raises(SystemExit, match="df64"):
-        main(["solve", "--input", p, "--dtype", "f64"])
-
-
 def test_solve_not_converged_hints_df64(capsys):
     """A stalled fp32 solve exits 2 AND names the df64 route (VERDICT r4
     weak #6: NOT-conv must not be a UX dead end)."""
@@ -413,58 +220,91 @@ def test_solve_not_converged_hints_df64(capsys):
     assert "--accuracy df64" in err
 
 
-def test_solve_df64_distributed(tmp_path, capsys):
-    """--accuracy df64 --devices 4: the distributed df64 route (round 5
-    — accuracy AND distribution in one path)."""
-    p = str(tmp_path / "prob.txt")
-    run_cli(["gen", "--poisson", "40x40", "--out", p], capsys)
+
+
+@pytest.mark.parametrize("dims,devices", [("8x6x5", "4"), ("12x10", "8")])
+def test_solve_distributed_stencil_source(dims, devices, capsys):
+    """--devices N with --method auto takes a matrix-free stencil through
+    the row-partitioned solver (stored as DIA for partitioning)."""
     code, out, err = run_cli(
-        ["solve", "--input", p, "--accuracy", "df64", "--devices", "4",
-         "--tol", "1e-8", "--precond", "jacobi"], capsys)
+        ["solve", "--poisson", dims, "--format", "stencil", "--devices",
+         devices, "--tol", "1e-6"], capsys)
     assert code == 0, err
-    assert "df64 (distributed, 4 shards)" in err
-    assert "true_relres=" in err
     assert "converged=True" in err
 
 
-def test_solve_df64_save_and_reuse_bundle(tmp_path, capsys):
-    """--accuracy df64 --save-operator persists the WBELL+df64 bundle;
-    `cgx solve --input bundle.npz` reuses it with no flags and no host
-    builds (VERDICT r4 weak #3)."""
+def test_solve_distributed_auto_format_file_partitions_csr(tmp_path,
+                                                           capsys):
+    """A file input (format auto) with --devices keeps the CSR for the
+    partitioner instead of converting it."""
+    p = str(tmp_path / "a.mtx")
+    run_cli(["gen", "--poisson", "6x6x6", "--out", p], capsys)
+    code, out, err = run_cli(
+        ["solve", "--input", p, "--devices", "4", "--precond", "jacobi",
+         "--tol", "1e-6"], capsys)
+    assert code == 0, err
+    assert "format=" not in err and "converged=True" in err
+
+
+def test_solve_auto_ell_with_jacobi(tmp_path, capsys):
+    """The auto pick's ELL operator takes --precond jacobi (ELL carries
+    its own diagonal)."""
+    p = str(tmp_path / "a.mtx")
+    run_cli(["gen", "--poisson", "6x6x6", "--out", p], capsys)
+    code, out, err = run_cli(
+        ["solve", "--input", p, "--precond", "jacobi", "--tol", "1e-6"],
+        capsys)
+    assert code == 0, err
+    assert "format=ell" in err and "converged=True" in err
+
+
+def test_solve_df64_refuses_devices(tmp_path, capsys):
     p = str(tmp_path / "prob.txt")
-    op = str(tmp_path / "op.npz")
-    run_cli(["gen", "--poisson", "12x12", "--out", p], capsys)
-    code, out, err = run_cli(
-        ["solve", "--input", p, "--format", "wbell", "--accuracy", "df64",
-         "--tol", "1e-8", "--precond", "jacobi", "--save-operator", op],
-        capsys)
-    assert code == 0, err
-    assert "operator saved" in err and "converged=True" in err
-
-    code, out, err = run_cli(
-        ["solve", "--input", op, "--tol", "1e-8", "--precond", "jacobi"],
-        capsys)
-    assert code == 0, err
-    assert "ir_df64 operator bundle" in err         # df64 auto-implied
-    assert "format=ir_df64 (prebuilt bundle)" in err
-    assert "true_relres=" in err and "converged=True" in err
+    run_cli(["gen", "--poisson", "6x6", "--out", p], capsys)
+    with pytest.raises(SystemExit, match="one device"):
+        main(["solve", "--input", p, "--accuracy", "df64", "--devices",
+              "4"])
 
 
-def test_solve_bundle_rejects_devices(tmp_path, capsys):
-    """An ir_df64 bundle with --devices>1 gets a clear error (the
-    partition needs the raw CSR), not a crash inside partition_wbell."""
-    import pytest
-    import scipy.sparse as sp
-    import cgx
-    from cgx.io.native_format import save_df64_operator
-    from cgx.solve.hp import IRDF64Operator, df64_ell_from_csr
+def test_solve_df64_keeps_float64_operator(tmp_path, capsys):
+    """--accuracy df64 builds the file's float64 operator, not its fp32
+    rounding (the df64 split needs the exact values); the fp32 path
+    casts."""
+    import argparse
 
-    a = sp.random(400, 400, density=0.02, random_state=3, format="csr")
-    a = sp.csr_matrix((a + a.T) + sp.eye(400) * 10.0)
-    w = cgx.wbell_from_csr(a)
-    op = IRDF64Operator(a_hp=df64_ell_from_csr(a), wb=w,
-                        diag=a.diagonal())
-    p = str(tmp_path / "op.npz")
-    save_df64_operator(p, op)
-    with pytest.raises(SystemExit, match="single-device"):
-        main(["solve", "--input", p, "--devices", "4"])
+    from cgx.cli import _build_matrix
+
+    p = str(tmp_path / "a.mtx")
+    run_cli(["gen", "--poisson", "5x4", "--out", p], capsys)
+    for accuracy, dtype in (("df64", np.float64), ("fp32", np.float32)):
+        args = argparse.Namespace(input=p, format=None, dtype="f32",
+                                  accuracy=accuracy, devices=1)
+        a, b, n = _build_matrix(args)
+        assert n == 20 and a.dtype == dtype, (accuracy, a.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_run_solve_returns_the_solution(dtype, capsys):
+    """cgx.cli.run_solve keeps what the solve computed: its solution
+    meets the reported residual, and the exit code follows convergence."""
+    from cgx.cli import parse_args, run_solve
+    out = run_solve(parse_args(["solve", "--poisson", "16x16", "--format",
+                                "dia", "--precond", "jacobi", "--dtype",
+                                dtype]))
+    x = np.asarray(out.x, np.float64)
+    assert x.shape == (256,) and out.code == 0 and bool(out.res.converged)
+    data = np.asarray(out.a.data, np.float64)
+    ax = np.zeros(256)
+    for k, off in enumerate(out.a.offsets):
+        if off >= 0:
+            ax[:256 - off] += data[k][:256 - off] * x[off:]
+        else:
+            ax[-off:] += data[k][-off:] * x[:256 + off]
+    b = np.asarray(out.b, np.float64)
+    true = np.linalg.norm(b - ax)
+    # fp32 recomputes the residual with its own rounding: within 10 %.
+    np.testing.assert_allclose(float(out.res.residual_norm), true,
+                               rtol=0.1 if dtype == "f32" else 1e-6)
+    assert true <= 1e-5 * np.linalg.norm(b)
+    assert out.x.dtype == np.dtype("float32" if dtype == "f32"
+                                   else "float64")

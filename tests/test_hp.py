@@ -170,109 +170,9 @@ def test_ir_df64_on_bcsstk_standin_small():
     assert true_rel <= 1.5e-6, (true_rel, info)
 
 
-def test_ir_df64_wbell_inner_reaches_true_tol():
-    """inner_format='wbell': the IR outer drives WBELL-engine inner solves
-    (interpret-mode kernel on CPU) to TRUE relres ≤ 1e-6 — the composition
-    that gives large unstructured systems fp64-grade accuracy at engine
-    speed (VERDICT r3 #1)."""
-    import cgx
-    from conftest import random_spd_csr
-
-    a = random_spd_csr(300, 0.03, np.random.default_rng(3))
-    # Worsen conditioning so the solve needs real work (several cycles).
-    d = sp.diags(np.logspace(0, 4, 300))
-    a = (d @ a @ d).tocsr()
-    rng = np.random.default_rng(5)
-    b = rng.standard_normal(300)
-    m = cgx.JacobiPrecond(
-        inv_diag=jnp.asarray(1.0 / a.diagonal(), jnp.float32))
-    res, info = ir_df64_solve(a, b, tol=1e-6, inner_tol=1e-2,
-                              inner_maxiter=2000, preconditioner=m,
-                              inner_format="wbell")
-    true_rel = np.linalg.norm(b - a @ df_to_f64(res.x)) / np.linalg.norm(b)
-    assert true_rel <= 1.5e-6, (true_rel, info)
-    assert bool(res.converged)
-
-
-def test_ir_df64_wbell_inner_chunked_matches():
-    """inner_chunk bounds each dispatch; the result still reaches tol."""
-    from conftest import random_spd_csr
-
-    a = random_spd_csr(256, 0.04, np.random.default_rng(9))
-    b = np.random.default_rng(10).standard_normal(256)
-    res, info = ir_df64_solve(a, b, tol=1e-8, inner_tol=1e-3,
-                              inner_format="wbell", inner_chunk=20)
-    true_rel = np.linalg.norm(b - a @ df_to_f64(res.x)) / np.linalg.norm(b)
-    assert true_rel <= 1.5e-8, (true_rel, info)
-
-
-def test_ir_df64_wbell_inner_rejects_unsupported_precond():
-    from conftest import random_spd_csr
-
-    from cgx.solve.precond import BlockJacobiPrecond
-    from cgx.sparse.types import csr_from_scipy
-
-    a = random_spd_csr(128, 0.05, np.random.default_rng(2))
-    b = np.zeros(128)
-    m = BlockJacobiPrecond.from_matrix(csr_from_scipy(a.astype(np.float32)),
-                                       blocksize=4)
-    with pytest.raises(ValueError, match="wbell"):
-        ir_df64_solve(a, b, preconditioner=m, inner_format="wbell")
-
-
-def test_ir_df64_auto_inner_format_small_no_wbell():
-    """auto: small systems never pay the WBELL build; the ell/csr pick
-    MATCHES auto_format's decision surface (one surface, VERDICT r4
-    weak #1 — this irregular matrix has ELL waste > 1.5, so both say
-    csr, where round 4's copy said ell unconditionally)."""
-    from cgx.solve.hp import _pick_inner_format
-    from cgx.sparse.wbell import pick_format
-    from conftest import random_spd_csr
-
-    a = random_spd_csr(128, 0.05, np.random.default_rng(4))
-    assert _pick_inner_format(a) == pick_format(a) == "csr"
-    # A near-uniform-degree small system (7 diagonals → 8-padded waste
-    # ~1.14 ≤ 1.5) picks ELL on both surfaces.
-    offs = [-3, -2, -1, 0, 1, 2, 3]
-    band = sp.diags([np.ones(128 - abs(k)) for k in offs], offs,
-                    format="csr")
-    assert _pick_inner_format(band) == pick_format(band) == "ell"
-    # And the solve itself works end-to-end through "auto".
-    b = np.random.default_rng(6).standard_normal(128)
-    res, info = ir_df64_solve(a, b, tol=1e-7, inner_format="auto")
-    true_rel = np.linalg.norm(b - a @ df_to_f64(res.x)) / np.linalg.norm(b)
-    assert true_rel <= 1.5e-7
-
-
-def test_wbell_routing_threshold_unified(monkeypatch):
-    """ONE threshold for every auto surface (VERDICT r4 #2): at the
-    measured 30 k-row break-even, ``ir_df64_solve(inner_format="auto")``'s
-    pick and ``auto_format``'s pick are the same function — WBELL for an
-    irregular matrix on TPU, and the constant lives in exactly one
-    place."""
-    import jax
-
-    import cgx.sparse.wbell as W
-    from cgx.solve.hp import _pick_inner_format
-
-    n = W.WBELL_MIN_ROWS + 1            # just past the measured break-even
-    rng = np.random.RandomState(0)
-    a = sp.random(n, n, density=2e-4, random_state=rng, format="csr")
-    a = (a + a.T + sp.identity(n, format="csr")).tocsr()
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert W.pick_format(a) == "wbell"
-    assert _pick_inner_format(a) == "wbell"     # same surface, same answer
-    # One row below the threshold: no WBELL on either surface.
-    assert W.pick_format(a, min_rows_wbell=n + 1) == "csr"
-    # Off-TPU: the engine is never picked (interpret mode is test-only).
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert W.pick_format(a) == _pick_inner_format(a) == "csr"
-
-
 def test_make_ir_df64_solver_reuses_build(rng):
     """The factory form: one operator build, repeated right-hand sides
-    (round 4 — the one-shot form rebuilt WBELL + df64 ELL per call)."""
+    (the one-shot form rebuilds the df64 ELL split per call)."""
     from cgx.solve.hp import make_ir_df64_solver
 
     a, _ = _ill_conditioned_spd(n=200, kappa=1e6)
@@ -285,61 +185,10 @@ def test_make_ir_df64_solver_reuses_build(rng):
         assert info["relres"] <= 1e-8
 
 
-def test_ir_df64_operator_bundle_roundtrip(tmp_path):
-    """save_to persists the WBELL+df64 operator bundle; a prebuilt-loaded
-    factory reproduces the solve with zero host builds (VERDICT r4
-    weak #3)."""
-    import cgx
-    from cgx.io.native_format import load_df64_operator, peek_kind
-    from cgx.solve.hp import make_ir_df64_solver
-    from conftest import random_spd_csr
-
-    a = random_spd_csr(300, 0.03, np.random.default_rng(3))
-    d = sp.diags(np.logspace(0, 4, 300))
-    a = (d @ a @ d).tocsr()
-    b = np.random.default_rng(5).standard_normal(300)
-    m = cgx.JacobiPrecond(
-        inv_diag=jnp.asarray(1.0 / a.diagonal(), jnp.float32))
-    p = str(tmp_path / "op.npz")
-
-    s1 = make_ir_df64_solver(a, tol=1e-6, inner_tol=1e-2,
-                             inner_maxiter=2000, preconditioner=m,
-                             inner_format="wbell", save_to=p)
-    r1, i1 = s1(b)
-    assert peek_kind(p) == "ir_df64"
-
-    op, _ = load_df64_operator(p)
-    assert op.wb is not None
-    np.testing.assert_allclose(op.diag, a.diagonal())
-    m2 = cgx.JacobiPrecond(
-        inv_diag=jnp.asarray(1.0 / op.diag, jnp.float32))
-    s2 = make_ir_df64_solver(prebuilt=op, tol=1e-6, inner_tol=1e-2,
-                             inner_maxiter=2000, preconditioner=m2)
-    r2, i2 = s2(b)
-    assert i1["outer"] == i2["outer"]
-    for r, i in ((r1, i1), (r2, i2)):
-        true_rel = np.linalg.norm(b - a @ df_to_f64(r.x)) \
-            / np.linalg.norm(b)
-        assert true_rel <= 1.5e-6, (true_rel, i)
-    np.testing.assert_allclose(df_to_f64(r2.x), df_to_f64(r1.x),
-                               rtol=1e-6, atol=1e-12)
-
-
-def test_ir_df64_save_to_rejects_non_wbell_inner(tmp_path):
-    """save_to without a WBELL inner is a clear error, not a silent
-    empty bundle."""
-    from cgx.solve.hp import make_ir_df64_solver
-
-    a, _ = _ill_conditioned_spd(n=128)
-    with pytest.raises(ValueError, match="persist"):
-        make_ir_df64_solver(a, inner_format="ell",
-                            save_to=str(tmp_path / "x.npz"))
-
-
 def test_ir_df64_multi_rhs_reaches_true_tol():
-    """Multi-RHS df64 refinement (round 5): a block of right-hand sides
-    reaches TRUE relres ≤ tol per column through batched WBELL inners
-    (shared plane streams) and batched df64 true residuals."""
+    """Multi-RHS df64 refinement: a block of right-hand sides reaches TRUE
+    relres ≤ tol per column through batched ELL inners (one shared
+    operator stream) and batched df64 true residuals."""
     from cgx.solve.hp import make_ir_df64_solver_multi
     from conftest import random_spd_csr
 
@@ -357,12 +206,6 @@ def test_ir_df64_multi_rhs_reaches_true_tol():
         rel = np.linalg.norm(B[:, j] - a @ X[:, j]) \
             / np.linalg.norm(B[:, j])
         assert rel <= 1.5e-6, (j, rel, info)
-    # And the chunked-inner form agrees.
-    solve_c = make_ir_df64_solver_multi(a, tol=1e-6, inner_tol=1e-2,
-                                        inner_maxiter=2000,
-                                        inner_chunk=25)
-    res_c, info_c = solve_c(B)
-    assert bool(np.asarray(res_c.converged).all()), info_c
 
 
 def test_df64_ell_spmm_matches_f64():
@@ -405,14 +248,14 @@ def test_ir_df64_resume_from_iterate():
         inv_diag=jnp.asarray(1.0 / a.diagonal(), jnp.float32))
     solver = make_ir_df64_solver(a, tol=1e-8, inner_tol=1e-2,
                                  inner_maxiter=2000, preconditioner=m,
-                                 inner_format="wbell")
+                                 inner_format="ell")
     full, info_full = solver(b)
     assert bool(full.converged)
 
     # "Preemption": cap the outer cycles, snapshot the iterate, resume.
     partial_solver = make_ir_df64_solver(
         a, tol=1e-8, inner_tol=1e-2, inner_maxiter=2000,
-        preconditioner=m, inner_format="wbell",
+        preconditioner=m, inner_format="ell",
         max_outer=max(1, info_full["outer"] // 2))
     part, info_part = partial_solver(b)
     res, info_res = solver(b, x0=part.x)

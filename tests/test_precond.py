@@ -96,22 +96,20 @@ def test_ic0_breakdown_raises():
 
 
 def test_ic0_gather_budget_guard(rng):
-    """The level-packed apply refuses scales that fault the device
-    (VERDICT r3 #7): padded gathers/apply over the budget raise an
-    actionable ValueError naming the TPU-shaped alternatives; the
-    escape hatch (gather_budget=None) still builds."""
+    """An explicit gather budget refuses a larger level-packed apply with
+    an actionable ValueError naming the alternatives; the default (no
+    budget) builds."""
     a = csr_from_scipy(random_spd_csr(64, density=0.1, rng=rng))
     with pytest.raises(ValueError, match="IC0SweepPrecond"):
         IC0Precond.from_matrix(a, gather_budget=10)
-    m = IC0Precond.from_matrix(a, dtype=np.float32,
-                               gather_budget=None)      # escape hatch
+    m = IC0Precond.from_matrix(a, dtype=np.float32)     # default: no cap
     r = jnp.asarray(rng.standard_normal(64), jnp.float32)
     assert np.all(np.isfinite(np.asarray(m.apply(r))))
 
 
 def test_ic0_guard_bench_row_records_clean_error(rng):
     """The SuiteSparse bench records a guarded ic0 row as a clean error
-    line instead of attempting the device-faulting apply."""
+    line instead of failing the sweep."""
     import scipy.sparse as sp
 
     from cgx.bench.suitesparse import bench_matrix

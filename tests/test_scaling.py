@@ -66,23 +66,3 @@ def test_xplane_trace_report(tmp_path, rng):
     assert "while" in names.lower() or "jit" in names.lower() or len(rows) > 3
 
 
-def test_xplane_overlap_report_machinery(tmp_path, rng):
-    """overlap_report runs end-to-end on a real trace (the numeric claim
-    is checked on hardware; here the machinery and interval math)."""
-    import jax
-    import jax.numpy as jnp
-    from cgx.io.poisson import poisson2d
-    from cgx.solve.cg import cg_solve
-    from cgx.utils.profiling import trace, overlap_report
-
-    a = poisson2d(16, 16)
-    b = jnp.asarray(rng.standard_normal(256))
-    solve = jax.jit(lambda b: cg_solve(a, b, tol=1e-8, maxiter=100))
-    jax.block_until_ready(solve(b))
-    d = str(tmp_path / "tb")
-    with trace(d):
-        jax.block_until_ready(solve(b * 1.001))
-    rep = overlap_report(d, a_keys=("copy",), b_keys=("while", "fusion"))
-    assert set(rep) >= {"a_total_us", "b_total_us", "overlap_us",
-                        "overlap_frac"}
-    assert 0.0 <= rep["overlap_frac"] <= 1.0

@@ -61,54 +61,3 @@ def test_stencil_is_jit_static(rng):
                                rtol=1e-12)
 
 
-def test_matvec_padded_matches_matvec(rng):
-    from cgx.sparse.stencil import poisson3d_stencil, poisson2d_stencil
-    s = poisson3d_stencil(5, 7, 6)
-    n = 210
-    x = jnp.asarray(rng.standard_normal(n))
-    x_pad = jnp.pad(x, (0, 1024 - n))
-    y_pad = s.matvec_padded(x_pad)
-    np.testing.assert_allclose(np.asarray(y_pad[:n]),
-                               np.asarray(s.matvec(x)), rtol=1e-12)
-    np.testing.assert_array_equal(np.asarray(y_pad[n:]), 0.0)
-
-    s2 = poisson2d_stencil(9, 7)
-    x2 = jnp.asarray(rng.standard_normal(63))
-    x2p = jnp.pad(x2, (0, 65))
-    y2 = s2.matvec_padded(x2p)
-    np.testing.assert_allclose(np.asarray(y2[:63]),
-                               np.asarray(s2.matvec(x2)), rtol=1e-12)
-    np.testing.assert_array_equal(np.asarray(y2[63:]), 0.0)
-
-
-def test_cg_solve_padded_matches_unpadded(rng):
-    from cgx.solve.padded import cg_solve_padded
-    from cgx.sparse.stencil import poisson3d_stencil
-    from cgx.solve.cg import cg_solve
-    s = poisson3d_stencil(6, 5, 7)
-    n = 210
-    b = jnp.asarray(rng.standard_normal(n))
-    ref = cg_solve(s, b, tol=1e-10, maxiter=1000)
-    res = cg_solve_padded(s, b, tol=1e-10, maxiter=1000, multiple=256)
-    assert bool(res.converged)
-    assert res.x.shape == (n,)
-    assert int(res.iterations) == int(ref.iterations)
-    np.testing.assert_allclose(np.asarray(res.x), np.asarray(ref.x),
-                               rtol=1e-9, atol=1e-11)
-
-
-def test_cg_solve_padded_stored_format_and_precond(rng):
-    from cgx.solve.padded import cg_solve_padded
-    from cgx.io.poisson import poisson2d
-    import cgx
-    a = poisson2d(11, 13)
-    n = 143
-    b = jnp.asarray(rng.standard_normal(n))
-    m = cgx.JacobiPrecond.from_matrix(a)
-    ref = cgx.cg_solve(a, b, tol=1e-10, maxiter=1000, preconditioner=m)
-    res = cg_solve_padded(a, b, tol=1e-10, maxiter=1000, preconditioner=m,
-                          multiple=128)
-    assert bool(res.converged)
-    assert int(res.iterations) == int(ref.iterations)
-    np.testing.assert_allclose(np.asarray(res.x), np.asarray(ref.x),
-                               rtol=1e-9, atol=1e-11)
